@@ -1,0 +1,142 @@
+"""Build and load the CUDA kernels of this package.
+
+The ``.cu`` sources under ``fast_plaid_tpu_torch/csrc/`` are compiled with
+nvcc for ``sm_90a`` into one shared library with a plain C interface and
+loaded through ctypes. The build happens at first use, from the sources in
+the checkout only, into ``build/fast_plaid_tpu_torch/<hash>/`` beside the
+package (``FASTPLAID_TORCH_BUILD_DIR`` overrides the root). The directory
+is keyed by a hash of the sources and the flags, and a file lock keeps
+parallel processes from building the same library twice.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+from fast_plaid_tpu_torch.utils.locking import FileLock
+
+__all__ = ["load_library", "build_info"]
+
+_CSRC = Path(__file__).resolve().parent.parent / "csrc"
+_FLAGS = [
+    "-gencode",
+    "arch=compute_90a,code=sm_90a",
+    "-std=c++17",
+    "-O3",
+    "-lineinfo",
+    "-shared",
+    "-Xcompiler",
+    "-fPIC",
+    "-Xptxas",
+    "-v",
+]
+_LIB_NAME = "libfast_plaid_kernels.so"
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+_info: dict = {}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    # (pid, own, table, scratch, out, B, W, C, Q, stream)
+    "fp_segmented_estimate": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
+    "fp_segmented_estimate_max_q": ([], _I),
+    "fp_segmented_estimate_scratch_words": ([_I, _I, _I], ctypes.c_longlong),
+    # (emb, n_rows, doc_cap, D, pids, lens, queries, B, R, Q, out, stream)
+    "fp_maxsim_gather": ([_P, _I, _I, _I, _P, _P, _P, _I, _I, _I, _P, _P], _I),
+    "fp_maxsim_gather_smem_bytes": ([_I, _I, _I], ctypes.c_longlong),
+}
+
+
+def _build_root() -> Path:
+    env = os.environ.get("FASTPLAID_TORCH_BUILD_DIR")
+    if env:
+        return Path(env)
+    return _CSRC.parent.parent / "build" / "fast_plaid_tpu_torch"
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    cand = os.path.join(home, "bin", "nvcc")
+    if os.path.exists(cand):
+        return cand
+    msg = "nvcc not found: the CUDA kernels need the CUDA toolkit to build"
+    raise RuntimeError(msg)
+
+
+def _sources() -> list[Path]:
+    return sorted(p for p in _CSRC.iterdir() if p.suffix in (".cu", ".cuh"))
+
+
+def build_info() -> dict:
+    """The loaded library's path and the compiler output of its build."""
+    return dict(_info)
+
+
+def load_library() -> ctypes.CDLL:
+    """Build (if needed) and load the kernel library; cached per process."""
+    global _lib
+    with _lock:
+        if _lib is not None:
+            return _lib
+        sources = _sources()
+        digest = hashlib.sha256(" ".join(_FLAGS).encode())
+        for src in sources:
+            digest.update(src.name.encode())
+            digest.update(src.read_bytes())
+        out_dir = _build_root() / digest.hexdigest()[:16]
+        lib_path = out_dir / _LIB_NAME
+        log_path = out_dir / "nvcc.log"
+        if not lib_path.exists():
+            out_dir.mkdir(parents=True, exist_ok=True)
+            with FileLock(str(out_dir / "build.lock")):
+                if not lib_path.exists():
+                    tmp = out_dir / f".{_LIB_NAME}.{os.getpid()}.tmp"
+                    cmd = [
+                        _nvcc(),
+                        *_FLAGS,
+                        "-o",
+                        str(tmp),
+                        *[str(s) for s in sources if s.suffix == ".cu"],
+                    ]
+                    proc = subprocess.run(
+                        cmd, capture_output=True, text=True, check=False
+                    )
+                    log_path.write_text(
+                        " ".join(cmd) + "\n" + proc.stdout + proc.stderr
+                    )
+                    if proc.returncode != 0:
+                        msg = (
+                            f"nvcc failed ({proc.returncode}):\n"
+                            f"{proc.stdout}{proc.stderr}"
+                        )
+                        raise RuntimeError(msg)
+                    os.replace(tmp, lib_path)
+        lib = ctypes.CDLL(str(lib_path))
+        for name, (argtypes, restype) in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = restype
+        _info.update(
+            path=str(lib_path),
+            log=log_path.read_text() if log_path.exists() else "",
+        )
+        _lib = lib
+        return lib
+
+
+def check(status: int, what: str) -> None:
+    """Raise if a launch returned a CUDA error code."""
+    if status != 0:
+        msg = f"{what} launch failed with CUDA error code {status}"
+        raise RuntimeError(msg)

@@ -1,0 +1,136 @@
+"""Fused candidate gather + exact MaxSim (stage 6 over the bf16 corpus cache).
+
+Port of ``fast_plaid_tpu/ops/rerank_kernel.py::maxsim_gather_scores``:
+
+    out[b, r] = sum_q max_{t < lens[b, r]} <emb_cache[pids[b, r], t], queries[b, q]>
+
+with bf16 inputs and float32 accumulation; an empty row (length 0) scores
+-inf. A pid outside [0, Np) is treated as an empty row (never read).
+
+``maxsim_gather_scores`` launches the CUDA kernel (``csrc/rerank_kernel.cu``)
+for tensors on a GPU and runs the plain PyTorch version,
+``maxsim_gather_scores_plain``, for tensors on the CPU. The q4 variant
+(``_q4_kernel``) is not ported yet (ROADMAP.md §2).
+"""
+
+from __future__ import annotations
+
+import torch
+
+__all__ = ["maxsim_gather_scores", "maxsim_gather_scores_plain"]
+
+_MAX_SMEM = 227 * 1024
+
+
+def maxsim_gather_scores_plain(
+    emb_cache: torch.Tensor,  # [Np, doc_cap, D] bf16
+    pids: torch.Tensor,  # [B, R] int32
+    lens: torch.Tensor,  # [B, R] int32 valid token counts
+    queries: torch.Tensor,  # [B, Q, D] (rounded to bf16)
+    *,
+    mem_budget: int = 256 * 1024 * 1024,
+) -> torch.Tensor:
+    """Plain PyTorch version: [B, R] float32, chunked over R so that the
+    gathered float32 rows stay within ``mem_budget`` bytes."""
+    b, r = pids.shape
+    n_rows, doc_cap, d = emb_cache.shape
+    q = queries.shape[1]
+    qf = queries.to(torch.bfloat16).to(torch.float32)  # [B, Q, D]
+    ok = (pids >= 0) & (pids < n_rows)
+    safe = torch.where(ok, pids, torch.zeros_like(pids)).long()
+    lens_eff = torch.where(ok, torch.clamp(lens, 0, doc_cap), torch.zeros_like(lens))
+    tok = torch.arange(doc_cap, device=pids.device)
+    per_row = b * doc_cap * max(d * 4, q * 4)
+    r_chunk = max(1, min(r, mem_budget // max(1, per_row)))
+    out = torch.empty((b, r), dtype=torch.float32, device=pids.device)
+    for s in range(0, r, r_chunk):
+        e = min(s + r_chunk, r)
+        rows = emb_cache[safe[:, s:e]].to(torch.float32)  # [B, rc, T, D]
+        ts = torch.bmm(
+            rows.reshape(b, (e - s) * doc_cap, d), qf.transpose(1, 2)
+        ).reshape(b, e - s, doc_cap, q)
+        valid = tok[None, None, :] < lens_eff[:, s:e, None]
+        ts = torch.where(valid[..., None], ts, float("-inf"))
+        out[:, s:e] = torch.sum(torch.amax(ts, dim=2), dim=-1)
+    return out
+
+
+def maxsim_gather_scores(
+    emb_cache: torch.Tensor,  # [Np, doc_cap, D] bf16
+    pids: torch.Tensor,  # [B, R] int32
+    lens: torch.Tensor,  # [B, R] int32 valid token counts
+    queries: torch.Tensor,  # [B, Q, D] (cast to bf16)
+) -> torch.Tensor:
+    """Fused gather+MaxSim: [B, R] float32 scores (-inf for empty rows).
+
+    Launches the CUDA kernel for CUDA tensors (counted in
+    ``maxsim_gather_scores.launches``) and the plain version for CPU tensors.
+    """
+    if pids.device.type == "cpu":
+        return maxsim_gather_scores_plain(emb_cache, pids, lens, queries)
+    from fast_plaid_tpu_torch.ops._build import check, load_library
+
+    if pids.device.type != "cuda":
+        msg = f"maxsim_gather_scores: unsupported device {pids.device}"
+        raise ValueError(msg)
+    if emb_cache.ndim != 3 or emb_cache.dtype != torch.bfloat16:
+        msg = "maxsim_gather_scores: emb_cache must be a [Np, doc_cap, D] bf16 tensor"
+        raise TypeError(msg)
+    n_rows, doc_cap, d = emb_cache.shape
+    b, r = pids.shape
+    if lens.shape != pids.shape:
+        msg = f"lens {tuple(lens.shape)} must match pids {tuple(pids.shape)}"
+        raise ValueError(msg)
+    if queries.ndim != 3 or queries.shape[0] != b or queries.shape[2] != d:
+        msg = f"queries must be [B={b}, Q, D={d}]; got {tuple(queries.shape)}"
+        raise ValueError(msg)
+    if pids.dtype != torch.int32 or lens.dtype != torch.int32:
+        msg = "maxsim_gather_scores: pids and lens must be int32"
+        raise TypeError(msg)
+    for name, t in (("emb_cache", emb_cache), ("lens", lens), ("queries", queries)):
+        if t.device != pids.device:
+            msg = f"maxsim_gather_scores: {name} is on {t.device}, not {pids.device}"
+            raise ValueError(msg)
+    q = queries.shape[1]
+    qb = queries.to(torch.bfloat16)
+    if not all(t.is_contiguous() for t in (emb_cache, pids, lens, qb)):
+        msg = "maxsim_gather_scores: inputs must be contiguous"
+        raise ValueError(msg)
+    if doc_cap % 16 or d % 16 or q < 1 or b > 65535:
+        msg = (
+            "maxsim_gather_scores: needs doc_cap and D multiples of 16, Q >= 1 "
+            f"and B <= 65535; got doc_cap={doc_cap}, D={d}, Q={q}, B={b}"
+        )
+        raise ValueError(msg)
+    if emb_cache.data_ptr() % 16 or qb.data_ptr() % 16:
+        msg = "maxsim_gather_scores: emb_cache and queries must be 16-byte aligned"
+        raise ValueError(msg)
+    lib = load_library()
+    if lib.fp_maxsim_gather_smem_bytes(doc_cap, d, q) > _MAX_SMEM:
+        msg = (
+            f"maxsim_gather_scores: doc_cap={doc_cap}, D={d}, Q={q} needs more "
+            "shared memory than one block has"
+        )
+        raise ValueError(msg)
+    out = torch.empty((b, r), dtype=torch.float32, device=pids.device)
+    stream = torch.cuda.current_stream(pids.device).cuda_stream
+    status = lib.fp_maxsim_gather(
+        emb_cache.data_ptr(),
+        n_rows,
+        doc_cap,
+        d,
+        pids.data_ptr(),
+        lens.data_ptr(),
+        qb.data_ptr(),
+        b,
+        r,
+        q,
+        out.data_ptr(),
+        stream,
+    )
+    check(status, "maxsim_gather_scores")
+    maxsim_gather_scores.launches += 1
+    return out
+
+
+maxsim_gather_scores.launches = 0

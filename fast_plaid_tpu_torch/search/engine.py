@@ -1,0 +1,659 @@
+"""The PLAID search cascade over a query tile, in eager PyTorch.
+
+Port of ``fast_plaid_tpu/search/engine.py``: the same static-shape cascade
+(fixed-capacity buffers, sentinel ids, sort-based dedup), run eagerly on one
+``torch.device``. Stages:
+
+  1. query-centroid scores
+  2. IVF probe (exact top-k per query token)
+  3. candidates from whole cells, as 128-aligned IVF row windows
+  4. per-slot approximate estimates (``ops/estimate_kernel.py``)
+  5. prune to the exact-rerank pool R = n_full_scores / pool_divisor
+  6. exact MaxSim over the pool (``ops/rerank_kernel.py`` over the bf16
+     corpus cache, or decompress + MaxSim)
+  7. final top-k
+
+Ported here: the ``cells`` / ``cells_full`` estimators (the exhaustive and
+the budgeted chunked-window branches, with rank admission), the emb_cache and
+decompress rerank branches, and the numpy policy functions. The ``tokens``
+estimator, subsets, the q4 tier, length buckets and token-score matrices
+raise NotImplementedError (ROADMAP.md §1).
+
+Tie order follows the JAX package on its CPU backend: cell orderings and the
+stage-5 and stage-7 top-k use stable sorts, so equal scores keep the lower
+index, as ``jnp.argsort`` and ``lax.top_k`` do. The stage-2 probe uses
+``torch.topk``: the reference's probe is ``approx_max_k``, approximate on
+its accelerator, and an exact probe differs from the CPU reference only
+where two probe scores tie exactly.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from fast_plaid_tpu_torch.index.layout import (
+    IVF_ALIGN,
+    DeviceIndex,
+    IndexSpec,
+    gather_res,
+    round_up,
+)
+from fast_plaid_tpu_torch.ops import codec
+from fast_plaid_tpu_torch.ops.estimate_kernel import (
+    segmented_estimate,
+    segmented_estimate_plain,
+)
+from fast_plaid_tpu_torch.ops.maxsim import maxsim_reduce
+from fast_plaid_tpu_torch.ops.rerank_kernel import maxsim_gather_scores
+
+__all__ = [
+    "search_core",
+    "search_impl",
+    "candidates_core",
+    "candidates_impl",
+    "final_topk_core",
+    "candidate_capacity",
+    "suggest_query_tile",
+    "suggest_slot_budget",
+    "suggest_safe_budget",
+    "resolve_approx_mode",
+    "rescue_pool",
+]
+
+NEG = float("-inf")
+
+
+def _exact_scores(emb, queries, valid):
+    """MaxSim of doc tokens vs queries: bf16-rounded inputs, float32 math."""
+    ts = torch.einsum(
+        "brtd,bqd->brtq",
+        emb.to(torch.bfloat16).to(torch.float32),
+        queries.to(torch.bfloat16).to(torch.float32),
+    )
+    return maxsim_reduce(ts, valid), ts
+
+
+def _chunk_count(total: int, chunk: int) -> int:
+    return -(-total // chunk)
+
+
+def rescue_pool(top_k: int) -> int:
+    """Exact-rescore slice size after the q4 prefilter (4x top_k, min 32)."""
+    return round_up(max(4 * top_k, 32), 8)
+
+
+def _pad_to(x: torch.Tensor, size: int, axis: int, value) -> torch.Tensor:
+    pad = size - x.shape[axis]
+    if pad <= 0:
+        return x
+    shape = list(x.shape)
+    shape[axis] = pad
+    return torch.cat([x, torch.full(shape, value, dtype=x.dtype, device=x.device)], axis)
+
+
+def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``jnp.take_along_axis(x, idx, axis=1)`` for [B, N(, ...)] tensors."""
+    idx = idx.long()
+    if x.ndim == 3:
+        idx = idx[..., None].expand(-1, -1, x.shape[2])
+    return torch.gather(x, 1, idx)
+
+
+def _argsort_desc(x: torch.Tensor) -> torch.Tensor:
+    """Stable descending argsort (``jnp.argsort(-x)``: ties keep index order)."""
+    return torch.argsort(-x, dim=-1, stable=True)
+
+
+def _top_k(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``lax.top_k``: the k largest, descending, ties to the lower index."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _doc_mask(dev: DeviceIndex, pids: torch.Tensor, doc_cap: int) -> torch.Tensor:
+    """Validity mask [..., doc_cap] for doc-major rows gathered by pid."""
+    lens = dev.doc_lengths[pids.long()]
+    return torch.arange(doc_cap, device=pids.device) < lens[..., None]
+
+
+def _sort_pid_payload(
+    pid: torch.Tensor, payload: torch.Tensor, payload_bound: int, sent_pid: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Row-sort ``pid`` carrying ``payload`` (values in [0, payload_bound)).
+
+    Packs both into one int32 key when the range fits, so one array is
+    sorted; otherwise co-sorts. Payload order within an equal-pid run is
+    unspecified; callers only max-combine runs.
+    """
+    cpad = 1 << max(payload_bound - 1, 1).bit_length()
+    if (sent_pid + 1) * cpad < 2**31:
+        key_s = torch.sort(pid * cpad + payload, dim=-1).values
+        return key_s // cpad, key_s % cpad
+    pid_s, idx = torch.sort(pid, dim=-1, stable=True)
+    return pid_s, torch.gather(payload, 1, idx)
+
+
+def _dedup_sorted(x: torch.Tensor, sentinel) -> torch.Tensor:
+    """Replace repeated values in a row-sorted array with ``sentinel``."""
+    dup = torch.cat(
+        [
+            torch.zeros((*x.shape[:-1], 1), dtype=torch.bool, device=x.device),
+            x[..., 1:] == x[..., :-1],
+        ],
+        dim=-1,
+    )
+    return torch.where(dup, torch.full_like(x, sentinel), x)
+
+
+def _run_heads(pid_s: torch.Tensor, sent_pid: int) -> torch.Tensor:
+    """First slot of every equal-pid run, sentinel runs excluded."""
+    first = torch.ones((pid_s.shape[0], 1), dtype=torch.bool, device=pid_s.device)
+    return torch.cat([first, pid_s[:, 1:] != pid_s[:, :-1]], dim=-1) & (
+        pid_s != sent_pid
+    )
+
+
+def _slot_estimates(
+    pid_s: torch.Tensor,  # [B, W] int32, row-sorted by pid (sentinels last)
+    own_s: torch.Tensor,  # [B, W] int32 owning-cell index into cell_scores
+    cell_scores: torch.Tensor,  # [B, C, Q] bf16 probe-score table
+    *,
+    use_kernel: bool,
+) -> torch.Tensor:
+    """Per-slot candidate estimates [B, W] f32: sum_q max over the slot's
+    equal-pid run of the owning cells' query-token scores. Only valid at
+    each run's first slot; mask with the run heads.
+
+    ``use_kernel`` goes through the kernel wrapper (the CUDA kernel for CUDA
+    tensors); otherwise the plain version runs with the doubling capped at
+    C, the bound on a run's length.
+    """
+    if use_kernel:
+        return segmented_estimate(pid_s, own_s, cell_scores)
+    return segmented_estimate_plain(
+        pid_s, own_s, cell_scores, max_run=cell_scores.shape[1]
+    )
+
+
+def candidates_impl(
+    dev: DeviceIndex,
+    queries: torch.Tensor,  # [B, Q, D] (zero-padded query tokens)
+    subset: torch.Tensor | None,
+    *,
+    ispec: IndexSpec,
+    n_ivf_probe: int,
+    n_full_scores: int,
+    cand_cap: int | None = None,
+    approx_mode: str = "cells",
+    with_stats: bool = False,
+    slot_budget: int | None = None,
+    use_estimate_kernel: bool = False,
+    pool_divisor: int = 2,
+    rank_admit: int = 0,
+):
+    """Cascade stages 1-5. Returns the rerank set p2 [B, R] (sentinel_pid
+    padding), sorted by descending approximate score; with ``with_stats``
+    also a [B, 2] int32 array (budget-pruned slots, cap-overflow slots).
+
+    See ``fast_plaid_tpu.search.engine.candidates_impl`` for the estimator
+    regimes. (The JAX signature's ``mem_budget`` sizes no chunk loop in the
+    branches ported here, so it is not taken.)
+    """
+    if subset is not None:
+        msg = "subset-restricted search is not ported yet (ROADMAP.md §1, subsets)"
+        raise NotImplementedError(msg)
+    if approx_mode not in ("cells", "cells_full"):
+        msg = (
+            f"approx_mode={approx_mode!r} is not ported yet; the port runs "
+            "'cells' and 'cells_full' (ROADMAP.md §1, estimators)"
+        )
+        raise NotImplementedError(msg)
+    queries = queries.to(torch.float32)
+    device = queries.device
+    b, q, d = queries.shape
+    kp = dev.centroids.shape[0]
+    k_real = ispec.n_partitions
+    cell_cap = ispec.cell_cap
+    sent_pid = ispec.sentinel_pid
+
+    # ---- 1. query-centroid scores. From 32k cells on, the [B, Q, Kp]
+    # table is bf16 and its inputs are bf16 (float32 accumulation).
+    flat_q = queries.reshape(b * q, d)
+    if kp >= 32768:
+        scores_qc = codec.bf16_matmul(flat_q, dev.centroids.t()).to(torch.bfloat16)
+    else:
+        scores_qc = torch.matmul(flat_q, dev.centroids.t())
+    scores_qc = scores_qc.reshape(b, q, kp)
+
+    # ---- 2. IVF probe. Zero-padded query tokens must not probe.
+    tok_ok = torch.sum(torch.abs(queries), dim=-1) > 0  # [B, Q]
+    cell_valid = torch.arange(kp, device=device) < k_real
+    probe_scores = torch.where(
+        cell_valid[None, None, :] & tok_ok[..., None], scores_qc, NEG
+    )
+    probe = min(n_ivf_probe, kp)
+    top_cell_scores, cells = torch.topk(probe_scores.reshape(b * q, kp), probe, dim=-1)
+    top_cell_scores = top_cell_scores.reshape(b, q, probe)
+    cells = cells.to(torch.int32).reshape(b, q, probe)
+    cells = torch.where(top_cell_scores > NEG, cells, kp)  # kp = empty cell
+    # Pack each probed cell with its per-token probe rank and sort, so the
+    # best rank at which any query token probed a cell heads its run.
+    pp = 1 << max((probe - 1).bit_length(), 1)
+    if (kp + 1) * pp >= 2**31:
+        msg = (
+            f"n_partitions ({kp}) x probe-rank range ({pp}) overflows the "
+            "int32 cell/rank packing; reduce n_ivf_probe or the partition "
+            "count"
+        )
+        raise ValueError(msg)
+    rank = torch.arange(probe, dtype=torch.int32, device=device).expand(b, q, probe)
+    packed = torch.where(cells == kp, kp * pp, cells * pp + rank)
+    packed = torch.sort(packed.reshape(b, q * probe), dim=-1).values
+    best_rank = packed % pp  # valid at each run head
+    cells = _dedup_sorted(packed // pp, kp)
+    # [B, C, Q] per-cell/query-token score table from the probed centroids.
+    cent_sel = dev.centroids[torch.clamp(cells, 0, kp - 1).long()].to(torch.float32)
+    tbl = torch.bmm(cent_sel, queries.transpose(1, 2))  # [B, C, Q]
+    # Order the deduped cells by descending probe score so truncation
+    # drops the least promising cells first.
+    cell_pri = torch.where(cells == kp, NEG, torch.amax(tbl, dim=-1))
+    order = _argsort_desc(cell_pri)
+    cells = _take(cells, order)
+    tbl = _take(tbl, order)
+    best_rank = _take(best_rank, order)
+
+    # ---- 3. candidates: probed cells' IVF lists.
+    c_cells = cells.shape[1]
+    offs = dev.ivf_offsets[cells.long()]
+    lens = dev.ivf_lengths[cells.long()]  # sentinel cells -> 0
+    total = torch.sum(lens, dim=-1, dtype=torch.int32)
+    if cand_cap is None:
+        cand_cap = c_cells * cell_cap
+
+    # [B, C] cell totals (zero-padded query rows contribute exactly 0).
+    cell_tot = torch.where(cells == kp, NEG, torch.sum(tbl, dim=-1))
+    order2 = _argsort_desc(cell_tot)
+    ct_s = _take(cell_tot, order2)
+    offs_s = _take(offs, order2)
+    lens_s = _take(lens, order2)
+
+    exhaustive = n_ivf_probe >= k_real or n_full_scores >= 2 * ispec.n_docs
+    if approx_mode == "cells_full":
+        # cells_full promises per-query-token estimates; the exhaustive
+        # branch scores at cell granularity, sound only when the rerank
+        # pool covers the corpus.
+        exhaustive = n_full_scores >= 2 * ispec.n_docs
+    k2 = min(cand_cap, ((n_full_scores + 127) // 128) * 128)
+    ivf2d = dev.ivf.reshape(-1, IVF_ALIGN)
+    n_ivf_rows = ivf2d.shape[0]
+
+    if exhaustive:
+        # Brute-force-identity contract: every probed cell is admitted (an
+        # explicit cand_cap still caps, counted as overflow) and candidates
+        # score at cell granularity.
+        budget = cand_cap
+        c_sel = c_cells
+        csum = torch.cumsum(lens_s, dim=-1, dtype=torch.int32)
+        cell_ok = (csum - lens_s) < budget
+        rows_pc = -(-cell_cap // IVF_ALIGN)
+        row_ids = (offs_s // IVF_ALIGN)[..., None] + torch.arange(
+            rows_pc, dtype=torch.int32, device=device
+        )
+        win = ivf2d[torch.clamp(row_ids, 0, n_ivf_rows - 1).long()].reshape(
+            b, c_sel, rows_pc * IVF_ALIGN
+        )[:, :, :cell_cap]
+        iota_cc = torch.arange(cell_cap, dtype=torch.int32, device=device)
+        valid = (iota_cc[None, None, :] < lens_s[..., None]) & cell_ok[..., None]
+        width = c_sel * cell_cap
+        pid = torch.where(valid, win, sent_pid).reshape(b, width)
+        vals = torch.where(valid, ct_s[..., None], NEG).reshape(b, width)
+
+        # Dedup multi-cell docs: sort by pid, keep each run's max score.
+        pid_s, idx = torch.sort(pid, dim=-1, stable=True)
+        val_s = torch.gather(vals, 1, idx)
+        step = 1
+        while step < width:
+            eq = pid_s[:, :-step] == pid_s[:, step:]
+            head = torch.maximum(
+                val_s[:, :-step], torch.where(eq, val_s[:, step:], NEG)
+            )
+            val_s = torch.cat([head, val_s[:, -step:]], dim=1)
+            step *= 2
+        approx = torch.where(_run_heads(pid_s, sent_pid), val_s, NEG)
+        r = min(max(n_full_scores // 2, 1), width)
+        s1, i1 = _top_k(approx, r)
+        p2 = torch.where(torch.isneginf(s1), sent_pid, torch.gather(pid_s, 1, i1))
+        if with_stats:
+            kept = torch.sum(torch.where(cell_ok, lens_s, 0), dim=-1)
+            over = torch.clamp(total - kept, min=0).to(torch.int32)
+            return p2, torch.stack([torch.zeros_like(over), over], dim=-1)
+        return p2
+
+    # ---- budgeted chunked-window branch ("cells_full" opens the budget
+    # to the full candidate capacity).
+    if approx_mode == "cells_full":
+        budget = cand_cap
+        c_sel = c_cells
+        order_b = _argsort_desc(cell_tot)
+    else:
+        budget = min(cand_cap, max(k2, slot_budget or 0))
+        typical = max(1, cand_cap // max(c_cells, 1))
+        c_sel = min(c_cells, max(8, -(-2 * budget // typical)))
+        # Giant-cell demotion: hub cells rank below every normal cell.
+        mean_len = torch.sum(dev.ivf_lengths) // max(k_real, 1)
+        giant_thresh = torch.clamp(8 * mean_len, min=budget // 4)
+        is_giant = (lens > giant_thresh) & torch.isfinite(cell_tot)
+        demoted = torch.where(is_giant, cell_tot - 1e10, cell_tot)
+        if rank_admit > 0:
+            # Rank-based admission tier: every query token's
+            # top-``rank_admit`` probed cells are admitted whole first.
+            tier0 = (best_rank < rank_admit) & (cells != kp) & ~is_giant
+            demoted = torch.where(
+                tier0, 1e10 * (rank_admit - best_rank).to(torch.float32), demoted
+            )
+            c_sel = min(c_cells, max(c_sel, q * rank_admit + 8))
+        order_b = _argsort_desc(demoted)
+    offs_o = _take(offs, order_b)
+    lens_o = _take(lens, order_b)
+    csum_full = torch.cumsum(lens_o, dim=-1, dtype=torch.int32)
+    ok_full = (csum_full - lens_o) < budget  # whole cells until budget
+    offs_s, lens_s = offs_o[:, :c_sel], lens_o[:, :c_sel]
+    cell_ok = ok_full[:, :c_sel]
+
+    # Chunk table: the selected cells' lists as IVF_ALIGN-wide chunks laid
+    # end to end, each one row of the 2-D IVF view.
+    w = IVF_ALIGN
+    s_chunks = -(-budget // w) + c_sel + -(-cell_cap // w)
+    nck = torch.where(cell_ok, (lens_s + w - 1) // w, 0)  # [B, c_sel]
+    ck_end = torch.cumsum(nck, dim=-1, dtype=torch.int32)
+    ck_start = ck_end - nck
+    jj = torch.arange(s_chunks, dtype=torch.int32, device=device)
+    own = (jj[None, :, None] >= ck_start[:, None, :]) & (
+        jj[None, :, None] < ck_end[:, None, :]
+    )  # [B, S, c_sel]: exactly one owner while jj < total chunks
+    sel_ids = torch.arange(c_sel, dtype=torch.int32, device=device)
+    owner = torch.sum(torch.where(own, sel_ids[None, None, :], 0), dim=-1).to(
+        torch.int32
+    )  # [B, S]
+    has = torch.any(own, dim=-1)
+    local = jj[None, :] - _take(ck_start, owner)
+    off = _take(offs_s, owner) + local * w
+    rem = _take(lens_s, owner) - local * w
+    win = ivf2d[torch.clamp(off // w, 0, n_ivf_rows - 1).long()]  # [B, S, w]
+    iota_w = torch.arange(w, dtype=torch.int32, device=device)
+    valid = (iota_w[None, None, :] < rem[..., None]) & has[..., None]
+    width = s_chunks * w
+    pid = torch.where(valid, win, sent_pid).reshape(b, width)
+    ownw = owner[..., None].expand(b, s_chunks, w).reshape(b, width)
+
+    # ---- 4. sort by pid carrying the owning cell; per-query-token
+    # estimates from the [B, c_sel, Q] table, max-combined within runs.
+    pid_s, own_s = _sort_pid_payload(pid, ownw, c_sel, sent_pid)
+    cell_scores = _take(tbl, order_b)[:, :c_sel].to(torch.bfloat16)
+    est = _slot_estimates(pid_s, own_s, cell_scores, use_kernel=use_estimate_kernel)
+    approx = torch.where(_run_heads(pid_s, sent_pid), est, NEG)
+
+    # ---- 5. prune straight to the exact-rerank pool.
+    r = min(max(n_full_scores // pool_divisor, 1), width)
+    s1, i1 = _top_k(approx, r)
+    p2 = torch.where(torch.isneginf(s1), sent_pid, torch.gather(pid_s, 1, i1))
+    if with_stats:
+        kept = torch.sum(torch.where(cell_ok, lens_s, 0), dim=-1)
+        if approx_mode == "cells_full":
+            over = torch.clamp(total - kept, min=0).to(torch.int32)
+            return p2, torch.stack([torch.zeros_like(over), over], dim=-1)
+        budget_free = max(k2, slot_budget or 0)  # pre-cand_cap intent
+        ok_free = (csum_full - lens_o) < budget_free
+        target_free = torch.sum(torch.where(ok_free, lens_o, 0), dim=-1)
+        target_cap = torch.sum(torch.where(ok_full, lens_o, 0), dim=-1)
+        over = torch.clamp(target_free - target_cap, min=0).to(torch.int32)
+        pruned = torch.clamp(total - kept, min=0).to(torch.int32) - over
+        return p2, torch.stack([torch.clamp(pruned, min=0), over], dim=-1)
+    return p2
+
+
+def _final_topk(exact: torch.Tensor, p2: torch.Tensor, top_k: int):
+    r = p2.shape[1]
+    kk = min(top_k, r)
+    fs, fi = _top_k(exact, kk)
+    fp = torch.gather(p2, 1, fi)
+    fp = torch.where(torch.isneginf(fs), -1, fp)
+    return _pad_to(fp, top_k, 1, -1), _pad_to(fs, top_k, 1, NEG)
+
+
+def search_impl(
+    dev: DeviceIndex,
+    queries: torch.Tensor,
+    subset: torch.Tensor | None,
+    *,
+    ispec: IndexSpec,
+    top_k: int,
+    n_ivf_probe: int,
+    n_full_scores: int,
+    want_tokens: bool = False,
+    mem_budget: int = 256 * 1024 * 1024,
+    cand_cap: int | None = None,
+    approx_mode: str = "cells",
+    with_stats: bool = False,
+    use_rerank_kernel: bool = False,
+    slot_budget: int | None = None,
+    use_estimate_kernel: bool = False,
+    pool_divisor: int = 2,
+    rank_admit: int = 0,
+):
+    """Batched PLAID cascade. Returns (pids [B, top_k] int32 with -1
+    padding, scores [B, top_k] f32 with -inf padding), plus a [B, 2] int32
+    stats array with ``with_stats``.
+
+    ``use_estimate_kernel`` / ``use_rerank_kernel`` route stages 4 and 6
+    through the kernel wrappers (the CUDA kernels on a GPU); False runs the
+    plain PyTorch versions.
+    """
+    if want_tokens:
+        msg = "token-score matrices are not ported yet (ROADMAP.md §1)"
+        raise NotImplementedError(msg)
+    if subset is not None:
+        msg = "subset-restricted search is not ported yet (ROADMAP.md §1, subsets)"
+        raise NotImplementedError(msg)
+    queries = queries.to(torch.float32)  # f16 wire staging -> f32 math
+    doc_cap = ispec.doc_cap
+    sent_pid = ispec.sentinel_pid
+    cand_out = candidates_impl(
+        dev,
+        queries,
+        None,
+        ispec=ispec,
+        n_ivf_probe=n_ivf_probe,
+        n_full_scores=n_full_scores,
+        cand_cap=cand_cap,
+        approx_mode=approx_mode,
+        with_stats=with_stats,
+        slot_budget=slot_budget,
+        use_estimate_kernel=use_estimate_kernel,
+        pool_divisor=pool_divisor,
+        rank_admit=rank_admit,
+    )
+    p2, stats = cand_out if with_stats else (cand_out, None)
+    b, q, d = queries.shape
+    r = p2.shape[1]
+
+    if use_rerank_kernel and dev.emb_cache is not None:
+        # Fused gather + MaxSim: candidate rows stream into shared memory
+        # once and only [B, R] scores come back.
+        exact = maxsim_gather_scores(
+            dev.emb_cache, p2, dev.doc_lengths[p2.long()], queries
+        )
+    else:
+        # Chunk over the rerank set with the gathers inside each chunk, so
+        # the [B, R, doc_cap, ...] token tensors never materialize in full.
+        per_row = b * doc_cap * max(d * 4, q * 4)
+        r_chunk = max(4, min(r, mem_budget // max(1, per_row)))
+        rn = _chunk_count(r, r_chunk)
+        p2_p = _pad_to(p2, rn * r_chunk, 1, sent_pid)
+        parts = []
+        for ci in range(rn):
+            pids = p2_p[:, ci * r_chunk : (ci + 1) * r_chunk]
+            valid = _doc_mask(dev, pids, doc_cap)
+            if dev.emb_cache is not None:
+                emb = dev.emb_cache[pids.long()]
+            else:
+                emb = codec.decompress(
+                    dev.codes[pids.long()],
+                    gather_res(dev.residuals, pids, doc_cap),
+                    dev.centroids,
+                    dev.bucket_weights,
+                    ispec.nbits,
+                    out_dtype=torch.bfloat16,
+                )  # [B, Rc, doc_cap, D] bf16
+            sc, _ = _exact_scores(emb, queries, valid)
+            parts.append(torch.where(pids == sent_pid, NEG, sc))
+        exact = torch.cat(parts, dim=1)[:, :r]
+    fp, fs = _final_topk(exact, p2, top_k)
+    return (fp, fs, stats) if with_stats else (fp, fs)
+
+
+# The JAX package jit-compiles these; PyTorch runs them eagerly.
+search_core = search_impl
+candidates_core = candidates_impl
+final_topk_core = _final_topk
+
+
+# ---------------------------------------------------------------------------
+# Host-side (numpy) policy functions, copied from
+# fast_plaid_tpu/search/engine.py so both packages resolve a corpus alike.
+# ---------------------------------------------------------------------------
+
+
+def suggest_query_tile(
+    ispec: IndexSpec,
+    q_cap: int,
+    cand_cap: int,
+    hbm_budget: int = 8 * 1024 * 1024 * 1024,
+    max_tile: int = 256,
+    slot_budget: int | None = None,
+) -> int:
+    """Queries per device tile such that the cascade's per-query working
+    set (query-centroid scores + candidate buffers + slot scores with the
+    doubling double-buffer) fits the device-memory budget."""
+    kp = ((max(ispec.n_partitions, 1) + 127) // 128) * 128
+    per_query = q_cap * kp * 8
+    per_query += cand_cap * 32
+    if slot_budget is not None:
+        width = 2 * min(cand_cap, slot_budget) + ispec.cell_cap + 256
+        per_query += width * (q_cap * 2 * 3 + 12)
+    return int(max(1, min(max_tile, hbm_budget // max(per_query, 1))))
+
+
+def candidate_capacity(ivf_lengths, n_cells: int, n_full_scores: int) -> int:
+    """Static candidate-buffer size: the sum of the ``n_cells`` largest IVF
+    lists, capped near 2x the expected sum."""
+    import numpy as np
+
+    lens = np.sort(np.asarray(ivf_lengths, np.int64))[::-1]
+    if lens.size == 0:
+        return 128
+    worst = int(lens[: min(n_cells, lens.size)].sum())
+    typical = int(2.0 * n_cells * float(lens.mean()))
+    cap = min(worst, max(typical, 4 * n_full_scores, 1024))
+    return max(128, ((cap + 127) // 128) * 128)
+
+
+def suggest_slot_budget(ivf_lengths, n_full_scores: int, n_hubs: int = 16) -> int:
+    """Hub-aware candidate slot budget for the budgeted cells path: the base
+    budget plus the excess mass of the ``n_hubs`` largest cells over the
+    uniform expectation, capped at 4x the base."""
+    import numpy as np
+
+    lens = np.sort(np.asarray(ivf_lengths, np.int64))[::-1]
+    k2 = ((n_full_scores + 127) // 128) * 128
+    if lens.size == 0:
+        return k2
+    h = min(n_hubs, lens.size)
+    excess = int(lens[:h].sum()) - h * int(np.median(lens))
+    return k2 + int(min(max(excess, 0), 4 * k2))
+
+
+def resolve_approx_mode(
+    approx_mode: str,
+    ivf_lengths_host,
+    *,
+    q_cap: int,
+    n_ivf_probe: int,
+    n_full_scores: int,
+    n_partitions: int,
+    cand_cap: int | None,
+    rank_admit: int | None = None,
+    slot_budget: int | None = None,
+    n_docs: int | None = None,
+) -> tuple[str, int, int | None]:
+    """Resolve "auto" to a concrete (approx_mode, rank_admit, slot_budget).
+
+    The estimator-selection policy of the JAX package, unchanged (see
+    ``fast_plaid_tpu.search.engine.resolve_approx_mode`` for the measured
+    rationale of each threshold).
+    """
+    import numpy as np
+
+    if approx_mode == "auto":
+        approx_mode = "cells"
+        if ivf_lengths_host is not None:
+            lens_h = np.asarray(ivf_lengths_host, np.float64)
+            n_cells = min(q_cap * n_ivf_probe, max(n_partitions, 1))
+            mean_len = float(lens_h.mean()) if lens_h.size else 0.0
+            expected = mean_len * n_cells
+            p90_len = float(np.quantile(lens_h, 0.9)) if lens_h.size else 0.0
+            if (
+                max(n_partitions, 1) <= 4 * n_ivf_probe
+                and p90_len >= max(n_full_scores // 2, 1)
+            ):
+                if n_docs is not None and n_full_scores // 4 >= max(
+                    n_docs // 4, 1
+                ):
+                    return "tokens", 0, slot_budget
+                return "cells_full", 0, slot_budget
+            if expected > 6.0 * n_full_scores:
+                r_adm = 1
+                if expected > 32.0 * n_full_scores:
+                    affordable = max(32768, 8 * n_full_scores)
+                    if (
+                        suggest_safe_budget(
+                            ivf_lengths_host, n_full_scores, q_cap, 2
+                        )
+                        <= affordable
+                    ):
+                        r_adm = 2
+                safe = suggest_safe_budget(
+                    ivf_lengths_host, n_full_scores, q_cap, r_adm
+                )
+                if cand_cap is not None and safe >= cand_cap:
+                    approx_mode = "cells_full"
+                elif rank_admit is None:
+                    rank_admit = r_adm
+    rank_admit = 0 if rank_admit is None else max(0, int(rank_admit))
+    if rank_admit > 0 and ivf_lengths_host is not None:
+        slot_budget = max(
+            slot_budget or 0,
+            suggest_safe_budget(
+                ivf_lengths_host, n_full_scores, q_cap, rank_admit
+            ),
+        )
+    return approx_mode, rank_admit, slot_budget
+
+
+def suggest_safe_budget(
+    ivf_lengths,
+    n_full_scores: int,
+    q_cap: int,
+    rank_admit: int = 1,
+) -> int:
+    """Slot budget sized so the rank-based admission tier fits whole: the
+    hub-aware base plus q_cap * rank_admit p90-length cells."""
+    import numpy as np
+
+    base = suggest_slot_budget(ivf_lengths, n_full_scores)
+    lens = np.asarray(ivf_lengths, np.int64)
+    if lens.size == 0:
+        return base
+    p90 = float(np.quantile(lens, 0.90))
+    need = int(q_cap * max(rank_admit, 0) * max(p90, 1.0))
+    return base + ((need + 127) // 128) * 128

@@ -1,0 +1,358 @@
+"""FastPlaid — the public API class (port of ``fast_plaid_tpu/search/fast_plaid.py``).
+
+Device resolution, ``create`` and ``search``, the cross-process FileLock and
+the mtime-triggered reload, over the PyTorch engine. ``update``, ``delete``,
+``search_token_scores`` and ``get_embeddings`` are not ported yet and raise
+NotImplementedError (ROADMAP.md §1).
+
+Embeddings in and out are numpy arrays (anything ``np.asarray`` accepts,
+CPU torch tensors included).
+"""
+
+from __future__ import annotations
+
+import math
+import os
+import threading
+from concurrent.futures import ThreadPoolExecutor
+from typing import Any
+
+import numpy as np
+import torch
+
+from fast_plaid_tpu_torch.index import storage
+from fast_plaid_tpu_torch.index.builder import create_index as build_index
+from fast_plaid_tpu_torch.search.kmeans import compute_kmeans
+from fast_plaid_tpu_torch.search.load import LoadedIndex, reload_index
+from fast_plaid_tpu_torch.search.searcher import normalize_queries, search_on_device
+from fast_plaid_tpu_torch.utils.locking import FileLock, Timeout
+
+__all__ = ["FastPlaid", "resolve_devices", "default_mem_budget"]
+
+
+def default_mem_budget(device: torch.device) -> int:
+    """Default per-search device working budget.
+
+    ``FASTPLAID_TPU_MEM_BUDGET`` overrides. The CPU gets 256 MB; a GPU an
+    eighth of its memory. (The JAX package gives accelerators a quarter:
+    eager PyTorch materializes the float32 temporaries XLA fuses away.)
+    """
+    env = os.environ.get("FASTPLAID_TPU_MEM_BUDGET")
+    if env is not None:
+        return int(env)
+    if device.type == "cpu":
+        return 256 * 1024 * 1024
+    return torch.cuda.get_device_properties(device).total_memory // 8
+
+
+def resolve_devices(device: str | list[str] | None) -> list[torch.device]:
+    """Map device spec strings to torch devices.
+
+    None -> every CUDA device if present, else the CPU. Accepts "cpu",
+    "cuda", "cuda:N" and "gpu[:N]" (an alias of "cuda[:N]").
+    """
+    if device is None:
+        if torch.cuda.is_available():
+            return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+        return [torch.device("cpu")]
+    specs = [device] if isinstance(device, str) else list(device)
+    out: list[torch.device] = []
+    for spec in specs:
+        name, _, idx = spec.lower().partition(":")
+        if name == "cpu":
+            out.append(torch.device("cpu"))
+            continue
+        if name not in ("cuda", "gpu"):
+            msg = f"Unknown device spec '{spec}'."
+            raise RuntimeError(msg)
+        if not torch.cuda.is_available():
+            msg = f"No CUDA device available for device spec '{spec}'."
+            raise RuntimeError(msg)
+        index = int(idx) if idx else 0
+        if index >= torch.cuda.device_count():
+            msg = f"Unknown device spec '{spec}'."
+            raise RuntimeError(msg)
+        out.append(torch.device("cuda", index))
+    return list(dict.fromkeys(out))
+
+
+def _format_embeddings(embeddings) -> list[np.ndarray]:
+    """Standardize to a list of [L, D] float32 arrays."""
+    if isinstance(embeddings, (list, tuple)):
+        out = []
+        for e in embeddings:
+            a = np.asarray(e, dtype=np.float32)
+            if a.ndim == 3:
+                a = a[0]
+            out.append(a)
+        return out
+    arr = np.asarray(embeddings, dtype=np.float32)
+    if arr.ndim == 2:
+        return [arr]
+    return [arr[i] for i in range(arr.shape[0])]
+
+
+def _not_ported(what: str):
+    msg = f"FastPlaid.{what} is not ported to PyTorch yet (see ROADMAP.md §1)"
+    raise NotImplementedError(msg)
+
+
+class FastPlaid:
+    """Create and search a PLAID index with concurrent safety."""
+
+    def __init__(
+        self,
+        index: str,
+        device: str | list[str] | None = None,
+        low_memory: bool = True,
+        mem_budget_bytes: int | None = None,
+        emb_cache_budget_bytes: int | None = None,
+        length_buckets: int = 4,
+        **kwargs: Any,  # noqa: ARG002 - parity with the reference signature
+    ) -> None:
+        self.index = index
+        self.devices = resolve_devices(device)
+        self.low_memory = low_memory
+        self.mem_budget = (
+            default_mem_budget(self.devices[0])
+            if mem_budget_bytes is None
+            else int(mem_budget_bytes)
+        )
+        self.emb_cache_budget = emb_cache_budget_bytes
+        self.length_buckets = int(length_buckets)
+
+        os.makedirs(self.index, exist_ok=True)
+        self.lock_path = os.path.join(self.index, "plaid.lock")
+        self.lock = FileLock(self.lock_path)
+        self._index_swap_lock = threading.RLock()
+        self._last_known_mtime = -1.0
+        self.indices: dict[str, LoadedIndex | None] = {}
+        self._check_and_reload_index(blocking=True)
+
+    # ------------------------------------------------------------------
+    # lifecycle
+    # ------------------------------------------------------------------
+
+    def close(self) -> None:
+        """Release device tensors (safe before deleting the index directory)."""
+        with self._index_swap_lock:
+            self.indices.clear()
+
+    def __enter__(self) -> "FastPlaid":
+        return self
+
+    def __exit__(self, exc_type, exc_val, exc_tb) -> None:
+        self.close()
+
+    # ------------------------------------------------------------------
+    # reload machinery (mtime double-checked locking)
+    # ------------------------------------------------------------------
+
+    def _current_mtime(self) -> float:
+        meta = os.path.join(self.index, "metadata.json")
+        try:
+            return os.path.getmtime(meta)
+        except OSError:
+            return 0.0
+
+    def _reload(self) -> dict[str, LoadedIndex | None]:
+        return reload_index(
+            self.index,
+            self.devices,
+            low_memory=self.low_memory,
+            emb_cache_budget=self.emb_cache_budget,
+            length_buckets=self.length_buckets,
+        )
+
+    def _check_and_reload_index(self, blocking: bool = True) -> bool:
+        current = self._current_mtime()
+        if current == self._last_known_mtime and self.indices:
+            return False
+        try:
+            self.lock.acquire(timeout=-1.0 if blocking else 0.0)
+        except Timeout:
+            return False  # an update is in flight; keep serving current index
+        try:
+            current = self._current_mtime()
+            if current == self._last_known_mtime and self.indices:
+                return False
+            new_indices = self._reload()
+            with self._index_swap_lock:
+                self.indices = new_indices
+                self._last_known_mtime = current
+            return True
+        finally:
+            self.lock.release()
+
+    def _reload_and_swap(self) -> None:
+        with self._index_swap_lock:
+            self.indices = {}  # free the old device tensors before loading
+        new_indices = self._reload()
+        with self._index_swap_lock:
+            self.indices = new_indices
+            self._last_known_mtime = self._current_mtime()
+
+    # ------------------------------------------------------------------
+    # create
+    # ------------------------------------------------------------------
+
+    @staticmethod
+    def _prepare_index_directory(index_path: str) -> None:
+        """Purge stale *.json / *.npy artifacts."""
+        import glob
+
+        if os.path.isdir(index_path):
+            for pattern in ("*.json", "*.npy"):
+                for path in glob.glob(os.path.join(index_path, pattern)):
+                    try:
+                        os.remove(path)
+                    except OSError:
+                        pass
+        else:
+            os.makedirs(index_path, exist_ok=True)
+
+    def create(
+        self,
+        documents_embeddings,
+        kmeans_niters: int = 4,
+        max_points_per_centroid: int = 256,
+        nbits: int = 4,
+        n_samples_kmeans: int | None = None,
+        batch_size: int = 25_000,
+        seed: int = 42,
+        use_triton_kmeans: bool | None = None,  # noqa: ARG002 - API parity
+        metadata: list[dict[str, Any]] | None = None,
+        start_from_scratch: int = 1000,
+        compress_only: bool = False,
+        show_progress: bool = False,
+    ) -> "FastPlaid":
+        """Create and persist the index; k-means and compression run on the
+        first device."""
+        if metadata is not None:
+            _not_ported("create(metadata=...)")
+        with self.lock:
+            docs = _format_embeddings(documents_embeddings)
+            if not docs:
+                msg = "documents_embeddings must not be empty."
+                raise ValueError(msg)
+            dim = docs[0].shape[-1]
+            self._prepare_index_directory(self.index)
+
+            if len(docs) <= start_from_scratch:
+                storage.save_object_npy(
+                    os.path.join(self.index, "embeddings.npy"), docs
+                )
+
+            centroids = compute_kmeans(
+                documents_embeddings=docs,
+                dim=dim,
+                kmeans_niters=kmeans_niters,
+                max_points_per_centroid=max_points_per_centroid,
+                seed=seed,
+                n_samples_kmeans=n_samples_kmeans,
+                device=self.devices[0],
+            )
+            build_index(
+                self.index,
+                docs,
+                centroids,
+                nbits=nbits,
+                batch_size=batch_size,
+                seed=seed,
+                compress_only=compress_only,
+                show_progress=show_progress,
+                device=self.devices[0],
+            )
+            self._reload_and_swap()
+        return self
+
+    # ------------------------------------------------------------------
+    # search
+    # ------------------------------------------------------------------
+
+    def _prepare_search(self, queries_embeddings, subset):
+        if subset is not None:
+            _not_ported("search(subset=...)")
+        self._check_and_reload_index(blocking=False)
+        if not os.path.exists(os.path.join(self.index, "metadata.json")):
+            msg = (
+                f"Index metadata not found in '{self.index}'. "
+                "Please create the index before searching."
+            )
+            raise FileNotFoundError(msg)
+        with self._index_swap_lock:
+            indices = dict(self.indices)
+        if any(v is None for v in indices.values()) or not indices:
+            self._check_and_reload_index(blocking=True)
+            with self._index_swap_lock:
+                indices = dict(self.indices)
+        for key, loaded in indices.items():
+            if loaded is None:
+                msg = f"Index could not be loaded on device '{key}'."
+                raise RuntimeError(msg)
+        return indices, normalize_queries(queries_embeddings)
+
+    def search(
+        self,
+        queries_embeddings,
+        top_k: int = 10,
+        batch_size: int = 2000,
+        n_full_scores: int = 4096,
+        n_ivf_probe: int = 8,
+        show_progress: bool = True,
+        subset: list[list[int]] | list[int] | None = None,
+        n_processes: int | None = None,  # noqa: ARG002 - API parity
+        approx_mode: str = "auto",
+        pool_divisor: int | None = None,
+        rank_admit: int | None = None,
+    ) -> list[list[tuple[int, float]]]:
+        """Search the index; returns per query a list of (doc_id, score).
+
+        Same parameters and defaults as ``fast_plaid_tpu``'s FastPlaid.search;
+        ``subset`` is not ported yet. With several devices the query batch
+        is split across them.
+        """
+        indices, queries = self._prepare_search(queries_embeddings, subset)
+        kwargs = dict(
+            top_k=top_k,
+            n_full_scores=n_full_scores,
+            n_ivf_probe=n_ivf_probe,
+            mem_budget=self.mem_budget,
+            show_progress=show_progress,
+            approx_mode=approx_mode,
+            max_tile=batch_size,
+            pool_divisor=pool_divisor,
+            rank_admit=rank_admit,
+        )
+        loaded = [indices[str(d)] for d in self.devices]
+        if len(loaded) == 1 or len(queries) <= 1:
+            return search_on_device(loaded[0], queries, **kwargs)
+        n_dev = min(len(loaded), len(queries))
+        per = math.ceil(len(queries) / n_dev)
+        parts = [queries[i * per : (i + 1) * per] for i in range(n_dev)]
+        results: list = []
+        with ThreadPoolExecutor(max_workers=n_dev) as pool:
+            futures = [
+                pool.submit(search_on_device, ld, qs, **kwargs)
+                for ld, qs in zip(loaded, parts)
+                if qs
+            ]
+            for fut in futures:
+                results.extend(fut.result())
+        return results
+
+    # ------------------------------------------------------------------
+    # not ported yet
+    # ------------------------------------------------------------------
+
+    def update(self, *args, **kwargs):  # noqa: ARG002
+        _not_ported("update")
+
+    def delete(self, *args, **kwargs):  # noqa: ARG002
+        _not_ported("delete")
+
+    def search_token_scores(self, *args, **kwargs):  # noqa: ARG002
+        _not_ported("search_token_scores")
+
+    def get_embeddings(self, *args, **kwargs):  # noqa: ARG002
+        _not_ported("get_embeddings")

@@ -1,0 +1,36 @@
+"""The PyTorch port imports with jax unavailable, and never imports it."""
+
+from __future__ import annotations
+
+import os
+import subprocess
+import sys
+
+_SCRIPT = r"""
+import importlib, pkgutil, sys
+sys.modules["jax"] = None  # any `import jax` now raises ImportError
+import fast_plaid_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(
+    fast_plaid_tpu_torch.__path__, "fast_plaid_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+bad = [m for m in sys.modules if m == "fast_plaid_tpu" or m.startswith("fast_plaid_tpu.")]
+assert not bad, bad
+print(len(names))
+"""
+
+
+def test_port_imports_without_jax():
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root)
+    out = subprocess.run(
+        [sys.executable, "-c", _SCRIPT],
+        capture_output=True,
+        text=True,
+        cwd=root,
+        env=env,
+        timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    # every module of the slice: ops, index, search, utils
+    assert int(out.stdout.strip().splitlines()[-1]) >= 18
