@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path once on one CUDA card.
+"""Drive the PyTorch port's search paths once on one CUDA card.
 
     python3 chip_smoke.py [--n-docs 57638] [--n-queries 1280] [--seed 0]
 
@@ -8,17 +8,37 @@ Phases, each of which raises (non-zero exit) on failure:
 0. Require CUDA; print the card's name and power limit (nvidia-smi).
 1. Build the CUDA kernels from ``fast_plaid_tpu_torch/csrc`` with nvcc.
 2. Hold each kernel against its plain PyTorch version on the card, at the
-   main path's shapes and at edge cases (empty rows, sentinel and
-   out-of-range pids, one run spanning a row, ragged widths), and time both.
-3. The main path: ``FastPlaid(index, device="cuda", low_memory=False)
-   .create(docs)`` over a synthetic corpus (unit-norm tokens, lengths
-   uniform in [80, 160], d=128, seeded), then ``.search`` of random queries
-   plus 64 planted probes (verbatim 32-token prefixes of documents). Both
-   kernels' launch counters must rise during the search, planted hit@1 must
-   be 1.0, and the same tiles run through the engine with the plain versions
-   must give the same top-10 except for ties. The kernels are compared once
-   more on the inputs the main path handed them.
-4. Print the kernels' JSON record, then the contract line
+   main paths' shapes and at edge cases, and time both: the stage-4
+   estimate (empty rows, one run spanning a row, ragged widths), the
+   per-query rerank (empty rows, sentinel and out-of-range pids), the q4
+   rerank (B 256, R 2048, caph 80; lens 0, sentinel and out-of-range pids,
+   caph 24, lens <= caph) and the dedup rerank (B 256, R 2048 pools of the
+   main path's overlap; one pid for every slot, runs of exactly G and G + 1,
+   all sentinel), the dedup kernel against the per-query kernel as well.
+3. The device-resident path: ``FastPlaid(index, device="cuda",
+   low_memory=False).create(docs)`` over a synthetic corpus (unit-norm
+   tokens, lengths uniform in [80, 160], d=128, seeded), then ``.search`` of
+   random queries plus 64 planted probes (verbatim 32-token prefixes of
+   documents). Stage 6 takes the dedup kernel where ``dedup_viable`` holds
+   (it does at this shape); the estimate and dedup launch counters must
+   rise, planted hit@1 must be 1.0, and the same tiles run through the
+   engine with the plain versions must give the same top-10 except for
+   ties. The kernels are compared once more on the inputs this path handed
+   them. 3b repeats the search with ``FASTPLAID_RERANK_DEDUP=0``, the stage
+   6 that corpora past the gate take, so the per-query kernel runs.
+4. The default constructor, ``FastPlaid(index, device="cuda")`` (low_memory:
+   residuals in host RAM, the q4 prefilter cache on the card), reopens the
+   same index and searches the same queries: the estimate and q4 counters
+   must rise, planted hit@1 must be 1.0, no result may be empty, and a tile
+   run with the plain versions must give the same top-10 except for ties.
+   The host row gather is timed.
+5. The resident q4 tier: the same index reopened with ``low_memory=False``
+   and ``emb_cache_budget_bytes`` between the q4 cache's and the bf16
+   cache's size. Scale cut: at these widths the tier engages by itself
+   only past about 1.4M documents on an 80 GB card, beyond this run's
+   time, so the budget is forced. Planted hit@1 must be 1.0 with the q4
+   kernel launched.
+6. Print the kernels' JSON record, then the contract line
    ``{"ok": true, "device": {...}}`` as the last line.
 """
 
@@ -74,6 +94,18 @@ def max_err(got, want) -> float:
     return float((g[fin] - w[fin]).abs().max()) if fin.any() else 0.0
 
 
+def check_close(got, want, what: str) -> float:
+    """rtol = atol = RERANK_TOL on finite entries, identical -inf patterns."""
+    import torch
+
+    err = max_err(got, want)
+    g, w = got.float().cpu(), want.float().cpu()
+    fin = torch.isfinite(w)
+    if not bool(((g[fin] - w[fin]).abs() <= RERANK_TOL + RERANK_TOL * w[fin].abs()).all()):
+        raise AssertionError(f"{what}: max abs err {err} beyond rtol/atol {RERANK_TOL}")
+    return err
+
+
 def check_estimate(pid, own, tbl, name: str, timing: bool = False) -> dict:
     import torch
 
@@ -109,12 +141,7 @@ def check_rerank(emb, pids, lens, qs, name: str, timing: bool = False) -> dict:
     got = maxsim_gather_scores(emb, pids, lens, qs)
     want = maxsim_gather_scores_plain(emb, pids, lens, qs)
     torch.cuda.synchronize()
-    err = max_err(got, want)
-    fin = torch.isfinite(want)
-    bound = float((RERANK_TOL + RERANK_TOL * want[fin].abs()).min()) if fin.any() else 1.0
-    rel_ok = bool(
-        ((got[fin] - want[fin]).abs() <= RERANK_TOL + RERANK_TOL * want[fin].abs()).all()
-    )
+    err = check_close(got, want, f"maxsim_gather_scores {name}")
     rec = {
         "case": name,
         "B": pids.shape[0],
@@ -122,13 +149,8 @@ def check_rerank(emb, pids, lens, qs, name: str, timing: bool = False) -> dict:
         "Q": qs.shape[1],
         "doc_cap": emb.shape[1],
         "max_abs_err": err,
-        "empty_rows": int((~fin).sum()),
+        "empty_rows": int((~torch.isfinite(want)).sum()),
     }
-    if not rel_ok:
-        raise AssertionError(
-            f"maxsim_gather_scores {name}: max abs err {err} beyond rtol/atol "
-            f"{RERANK_TOL} (tightest bound {bound})"
-        )
     if timing:
         rec["ms"] = cuda_time_ms(lambda: maxsim_gather_scores(emb, pids, lens, qs), 10)
         rec["plain_ms"] = cuda_time_ms(
@@ -139,6 +161,85 @@ def check_rerank(emb, pids, lens, qs, name: str, timing: bool = False) -> dict:
         rows = torch.where(ok, lens.clamp(0, emb.shape[1]), 0).sum().item()
         rec["kernel_GBps"] = rows * emb.shape[2] * 2 / rec["ms"] / 1e6
     log(f"# rerank {json.dumps(rec)}")
+    return rec
+
+
+def check_q4(emb_q4, scale, pids, lens, qs, name: str, timing: bool = False) -> dict:
+    import torch
+
+    from fast_plaid_tpu_torch.ops.rerank_kernel import (
+        maxsim_q4_gather_scores,
+        maxsim_q4_gather_scores_plain,
+    )
+
+    got = maxsim_q4_gather_scores(emb_q4, scale, pids, lens, qs)
+    want = maxsim_q4_gather_scores_plain(emb_q4, scale, pids, lens, qs)
+    torch.cuda.synchronize()
+    err = check_close(got, want, f"maxsim_q4_gather_scores {name}")
+    caph = emb_q4.shape[0] // scale.shape[0]
+    rec = {
+        "case": name,
+        "B": pids.shape[0],
+        "R": pids.shape[1],
+        "Q": qs.shape[1],
+        "caph": caph,
+        "max_abs_err": err,
+        "empty_rows": int((~torch.isfinite(want)).sum()),
+    }
+    if timing:
+        rec["ms"] = cuda_time_ms(
+            lambda: maxsim_q4_gather_scores(emb_q4, scale, pids, lens, qs), 10
+        )
+        rec["plain_ms"] = cuda_time_ms(
+            lambda: maxsim_q4_gather_scores_plain(emb_q4, scale, pids, lens, qs), 2
+        )
+        # Bytes the kernel must move: min(len, caph) packed rows of D bytes.
+        rows = int(lens.clamp(0, caph).sum().item())
+        rec["kernel_GBps"] = rows * emb_q4.shape[1] / rec["ms"] / 1e6
+    log(f"# q4 {json.dumps(rec)}")
+    return rec
+
+
+def check_dedup(emb, pids, lens, qs, name: str, timing: bool = False) -> dict:
+    """The dedup kernel against its plain version and the per-query kernel."""
+    import torch
+
+    from fast_plaid_tpu_torch.ops.rerank_dedup import (
+        group_pool,
+        maxsim_gather_scores_dedup,
+        maxsim_gather_scores_dedup_plain,
+    )
+    from fast_plaid_tpu_torch.ops.rerank_kernel import maxsim_gather_scores
+
+    got = maxsim_gather_scores_dedup(emb, pids, lens, qs)
+    want = maxsim_gather_scores_dedup_plain(emb, pids, lens, qs)
+    per_query = maxsim_gather_scores(emb, pids, lens, qs)
+    torch.cuda.synchronize()
+    err = check_close(got, want, f"maxsim_gather_scores_dedup {name} vs plain")
+    err_k2 = check_close(got, per_query, f"maxsim_gather_scores_dedup {name} vs kernel 2")
+    b, r = pids.shape
+    n = b * r
+    e_cap = min(n, n // 8 + emb.shape[0])
+    n_entries = int(group_pool(pids, lens, 8, e_cap)[4])
+    rec = {
+        "case": name,
+        "B": b,
+        "R": r,
+        "Q": qs.shape[1],
+        "doc_cap": emb.shape[1],
+        "entries": n_entries,
+        "slots": n,
+        "max_abs_err": err,
+        "max_abs_err_vs_kernel2": err_k2,
+        "empty_rows": int((~torch.isfinite(want)).sum()),
+    }
+    if timing:
+        rec["ms"] = cuda_time_ms(lambda: maxsim_gather_scores_dedup(emb, pids, lens, qs), 10)
+        rec["kernel2_ms"] = cuda_time_ms(lambda: maxsim_gather_scores(emb, pids, lens, qs), 10)
+        rec["plain_ms"] = cuda_time_ms(
+            lambda: maxsim_gather_scores_dedup_plain(emb, pids, lens, qs), 2
+        )
+    log(f"# dedup {json.dumps(rec)}")
     return rec
 
 
@@ -183,6 +284,14 @@ def phase_kernels(dev: "torch.device", n_docs: int) -> None:
     qs = torch.randn((b, Q_LEN, DIM), generator=g, device=dev)
     qs = qs / qs.norm(dim=-1, keepdim=True)
     check_rerank(emb, pids, lens, qs, "main_shape_random", timing=True)
+    # Dedup at the main shape: each query's pool is 2048 distinct pids drawn
+    # from a 57k-doc corpus, as stage 5 hands them over.
+    pool = torch.argsort(torch.rand((b, n_docs), generator=g, device=dev), dim=-1)
+    pids_d = pool[:, :r].to(torch.int32).contiguous()
+    del pool
+    doc_lengths = torch.randint(80, 161, (npd,), generator=g, device=dev, dtype=torch.int32)
+    doc_lengths[n_docs:] = 0
+    check_dedup(emb, pids_d, doc_lengths[pids_d.long()], qs, "main_shape_random")
     del emb
     # Edge cases: empty rows, sentinel and out-of-range pids, ragged R and Q.
     emb_s = torch.randn((500, 48, DIM), generator=g, device=dev).to(torch.bfloat16)
@@ -197,6 +306,44 @@ def phase_kernels(dev: "torch.device", n_docs: int) -> None:
     rec = check_rerank(emb_s, pids_s, lens_s, qs_s, "edge_cases")
     if rec["empty_rows"] < 12:
         raise AssertionError("edge case: empty / out-of-range rows did not score -inf")
+
+    # q4 rerank: main shape (B 256, R 2048, caph 80, Q 32, D 128).
+    caph = 80
+    emb_q4 = torch.randint(0, 256, (npd * caph, DIM), generator=g, device=dev).to(torch.uint8)
+    scale = torch.rand((npd,), generator=g, device=dev) / 7
+    check_q4(emb_q4, scale, pids, lens, qs, "main_shape_random", timing=True)
+    del emb_q4
+    # Edges: lens 0, sentinel and out-of-range pids, caph 24, lens <= caph.
+    caph_s = 24
+    q4_s = torch.randint(0, 256, (500 * caph_s, DIM), generator=g, device=dev).to(torch.uint8)
+    scale_s = torch.rand((500,), generator=g, device=dev)
+    lens_q = torch.randint(0, 2 * caph_s + 1, (9, 130), generator=g, device=dev,
+                           dtype=torch.int32)
+    lens_q[0, :5] = 0
+    lens_q[1, :3] = 30
+    lens_q[4] = torch.randint(1, caph_s + 1, (130,), generator=g, device=dev,
+                              dtype=torch.int32)
+    rec = check_q4(q4_s, scale_s, pids_s, lens_q, qs_s, "edge_cases_caph24")
+    if rec["empty_rows"] < 5:
+        raise AssertionError("q4 edge case: zero-length rows did not score -inf")
+
+    # Dedup edges: one pid for every slot, runs of exactly G and G + 1, all
+    # sentinel (doc_cap 48, Q 16).
+    emb_d = torch.randn((301, 48, DIM), generator=g, device=dev).to(torch.bfloat16)
+    dl = torch.randint(1, 49, (301,), generator=g, device=dev, dtype=torch.int32)
+    dl[-1] = 0
+    ar = torch.arange(200, dtype=torch.int32, device=dev)
+    cases = {
+        "one_pid_every_slot": torch.full((12, 200), 7, dtype=torch.int32, device=dev),
+        "runs_of_G": ar.repeat(8, 1),
+        "runs_of_G_plus_1": ar.repeat(9, 1),
+        "all_sentinel": torch.full((12, 200), 300, dtype=torch.int32, device=dev),
+    }
+    for name, p in cases.items():
+        qd = torch.randn((p.shape[0], 16, DIM), generator=g, device=dev)
+        rec = check_dedup(emb_d, p, dl[p.long()], qd, name)
+        if name == "all_sentinel" and rec["empty_rows"] != p.numel():
+            raise AssertionError("dedup all-sentinel rows did not score -inf")
 
 
 def planted_corpus(n_docs: int, seed: int):
@@ -228,118 +375,179 @@ def same_topk(a_ids, a_sc, b_ids, b_sc) -> tuple[bool, float]:
     return True, err
 
 
-def phase_main_path(dev, n_docs: int, n_queries: int, seed: int) -> dict:
+class Counters:
+    """The kernel wrappers' launch counters, zeroed just before a path runs
+    and read just after."""
+
+    def __init__(self):
+        from fast_plaid_tpu_torch.ops.estimate_kernel import segmented_estimate
+        from fast_plaid_tpu_torch.ops.rerank_dedup import maxsim_gather_scores_dedup
+        from fast_plaid_tpu_torch.ops.rerank_kernel import (
+            maxsim_gather_scores,
+            maxsim_q4_gather_scores,
+        )
+
+        self.fns = {
+            "segmented_estimate": segmented_estimate,
+            "maxsim_gather_scores": maxsim_gather_scores,
+            "maxsim_q4_gather_scores": maxsim_q4_gather_scores,
+            "maxsim_gather_scores_dedup": maxsim_gather_scores_dedup,
+        }
+
+    def zero(self) -> None:
+        for fn in self.fns.values():
+            fn.launches = 0
+
+    def read(self) -> dict:
+        return {name: fn.launches for name, fn in self.fns.items()}
+
+
+def api_search(fp, queries, counters, n_queries, probe_pids, label, need) -> dict:
+    """One timed ``FastPlaid.search`` of every query: launch counts read
+    around it, QPS, planted hit@1 (must be 1.0), no empty result."""
     import torch
 
-    from fast_plaid_tpu_torch.ops.estimate_kernel import segmented_estimate
-    from fast_plaid_tpu_torch.ops.rerank_kernel import maxsim_gather_scores
-    from fast_plaid_tpu_torch.search import FastPlaid, engine
     from fast_plaid_tpu_torch.search.searcher import last_search_stats
 
+    kw = dict(top_k=TOP_K, n_full_scores=N_FULL, n_ivf_probe=N_PROBE, show_progress=False)
+    fp.search(queries[:256], **kw)  # warm-up
+    torch.cuda.synchronize()
+    counters.zero()
     t0 = time.perf_counter()
-    docs, rng = planted_corpus(n_docs, seed)
-    probe_rng = np.random.default_rng(7)
-    probe_pids = probe_rng.integers(0, n_docs, 64)
-    probes = np.stack([docs[p][:Q_LEN] for p in probe_pids])
-    rand_q = rng.standard_normal((n_queries, Q_LEN, DIM), dtype=np.float32)
-    rand_q /= np.linalg.norm(rand_q, axis=-1, keepdims=True)
-    queries = np.concatenate([rand_q, probes])
-    log(f"# corpus: {n_docs} docs, {sum(len(d) for d in docs)} tokens in "
-        f"{time.perf_counter() - t0:.1f} s")
+    results = fp.search(queries, **kw)
+    torch.cuda.synchronize()
+    search_s = time.perf_counter() - t0
+    launches = counters.read()
+    stats = last_search_stats()
+    log(f"# [{label}] search: {len(queries)} queries in {search_s:.3f} s = "
+        f"{len(queries) / search_s:.1f} QPS; launches {launches}; stats {stats}")
+    if stats["approx_mode"] != "cells" or stats["rank_admit"] < 1:
+        raise AssertionError(f"{label}: expected cells with rank_admit >= 1, got {stats}")
+    for name in need:
+        if launches[name] < 1:
+            raise AssertionError(f"{label}: {name} was not launched during the search")
+    if len(results) != len(queries) or any(len(r) != TOP_K for r in results):
+        raise AssertionError(f"{label}: an empty or short result came back")
+    scores = np.asarray([[s for _, s in r] for r in results])
+    if not np.isfinite(scores).all():
+        raise AssertionError(f"{label}: non-finite scores in the results")
+    hits = [results[n_queries + i][0][0] == int(p) for i, p in enumerate(probe_pids)]
+    hit1 = float(np.mean(hits))
+    log(f"# [{label}] planted hit@1: {hit1:.4f} over {len(hits)} probes")
+    if hit1 != 1.0:
+        raise AssertionError(f"{label}: planted hit@1 {hit1} != 1.0")
+    return {
+        "launches": launches,
+        "qps": len(queries) / search_s,
+        "hit1": hit1,
+        "ids": np.asarray([[p for p, _ in r] for r in results]),
+    }
 
-    index_dir = os.path.join(ROOT, "build", "chip_smoke_index")
-    shutil.rmtree(index_dir, ignore_errors=True)
-    try:
-        fp = FastPlaid(index_dir, device=str(dev), low_memory=False)
+
+def engine_kwargs(loaded, mem_budget) -> dict:
+    from fast_plaid_tpu_torch.search import engine
+
+    ispec = loaded.ispec
+    n_cells = min(Q_LEN * N_PROBE, ispec.n_partitions)
+    cand_cap = engine.candidate_capacity(loaded.ivf_lengths_host, n_cells, N_FULL)
+    mode, rank_admit, slot_budget = engine.resolve_approx_mode(
+        "auto",
+        loaded.ivf_lengths_host,
+        q_cap=Q_LEN,
+        n_ivf_probe=N_PROBE,
+        n_full_scores=N_FULL,
+        n_partitions=ispec.n_partitions,
+        cand_cap=cand_cap,
+        slot_budget=engine.suggest_slot_budget(loaded.ivf_lengths_host, N_FULL),
+        n_docs=ispec.n_docs,
+    )
+    log(f"# resolved: approx_mode={mode} rank_admit={rank_admit} "
+        f"slot_budget={slot_budget} cand_cap={cand_cap}")
+    return dict(
+        ispec=ispec, top_k=TOP_K, n_ivf_probe=N_PROBE, n_full_scores=N_FULL,
+        mem_budget=mem_budget, cand_cap=cand_cap, approx_mode=mode,
+        slot_budget=slot_budget, rank_admit=rank_admit,
+    )
+
+
+def tile_latency(run, label: str, n: int = 30) -> tuple[float, float]:
+    """p50 / p99 of one 256-query tile: host clock around work that ends in a
+    device synchronize."""
+    import torch
+
+    lat = []
+    for _ in range(n):
         t0 = time.perf_counter()
-        fp.create(docs, show_progress=False)
+        run()
         torch.cuda.synchronize()
-        create_s = time.perf_counter() - t0
-        loaded = fp.indices[str(dev)]
-        ispec = loaded.ispec
-        log(f"# create: {create_s:.2f} s, {ispec}")
-        if loaded.dev.emb_cache is None:
-            raise AssertionError("the bf16 corpus cache is not resident")
-        log(f"# emb_cache resident: {tuple(loaded.dev.emb_cache.shape)} "
-            f"{loaded.dev.emb_cache.dtype}")
+        lat.append((time.perf_counter() - t0) * 1e3)
+    p50, p99 = (float(np.percentile(lat, p)) for p in (50, 99))
+    log(f"# [{label}] 256-query tile latency over {n} tiles: p50 {p50:.3f} ms, "
+        f"p99 {p99:.3f} ms")
+    return p50, p99
 
-        fp.search(queries[:256], top_k=TOP_K, n_full_scores=N_FULL,
-                  n_ivf_probe=N_PROBE, show_progress=False)  # warm-up
-        torch.cuda.synchronize()
-        segmented_estimate.launches = 0
-        maxsim_gather_scores.launches = 0
-        t0 = time.perf_counter()
-        results = fp.search(queries, top_k=TOP_K, n_full_scores=N_FULL,
-                            n_ivf_probe=N_PROBE, show_progress=False)
-        torch.cuda.synchronize()
-        search_s = time.perf_counter() - t0
-        launches = {
-            "segmented_estimate": segmented_estimate.launches,
-            "maxsim_gather_scores": maxsim_gather_scores.launches,
-        }
-        stats = last_search_stats()
-        log(f"# search: {len(queries)} queries in {search_s:.3f} s = "
-            f"{len(queries) / search_s:.1f} QPS; launches {launches}; stats {stats}")
-        if stats["approx_mode"] != "cells" or stats["rank_admit"] < 1:
-            raise AssertionError(f"expected cells with rank_admit >= 1, got {stats}")
-        for name, n in launches.items():
-            if n < 1:
-                raise AssertionError(f"{name} was not launched during the search")
-        if len(results) != len(queries) or any(len(r) != TOP_K for r in results):
-            raise AssertionError("search returned the wrong number of results")
-        scores = np.asarray([[s for _, s in r] for r in results])
-        if not np.isfinite(scores).all():
-            raise AssertionError("non-finite scores in the results")
-        hits = [results[n_queries + i][0][0] == int(p) for i, p in enumerate(probe_pids)]
-        hit1 = float(np.mean(hits))
-        log(f"# planted hit@1: {hit1:.4f} over {len(hits)} probes")
-        if hit1 != 1.0:
-            raise AssertionError(f"planted hit@1 {hit1} != 1.0")
 
-        # The same tiles through the engine: kernels vs plain versions.
-        q_cap = Q_LEN
-        n_cells = min(q_cap * N_PROBE, ispec.n_partitions)
-        cand_cap = engine.candidate_capacity(loaded.ivf_lengths_host, n_cells, N_FULL)
-        mode, rank_admit, slot_budget = engine.resolve_approx_mode(
-            "auto",
-            loaded.ivf_lengths_host,
-            q_cap=q_cap,
-            n_ivf_probe=N_PROBE,
-            n_full_scores=N_FULL,
-            n_partitions=ispec.n_partitions,
-            cand_cap=cand_cap,
-            slot_budget=engine.suggest_slot_budget(loaded.ivf_lengths_host, N_FULL),
-            n_docs=ispec.n_docs,
-        )
-        log(f"# resolved: approx_mode={mode} rank_admit={rank_admit} "
-            f"slot_budget={slot_budget} cand_cap={cand_cap}")
-        kw = dict(
-            ispec=ispec, top_k=TOP_K, n_ivf_probe=N_PROBE, n_full_scores=N_FULL,
-            mem_budget=fp.mem_budget, cand_cap=cand_cap, approx_mode=mode,
-            slot_budget=slot_budget, rank_admit=rank_admit,
-        )
-        captured: dict = {}
+class Recorder:
+    """Wrap a module-level kernel wrapper to keep the arguments of its last
+    call (the inputs a path handed it)."""
 
-        def recorder(fn, key):
-            def inner(*args):
-                captured[key] = args
-                return fn(*args)
-            return inner
+    def __init__(self, module, name):
+        self.module, self.name = module, name
+        self.fn = getattr(module, name)
+        self.args = None
 
-        worst = 0.0
+    def __enter__(self):
+        def inner(*args, **kwargs):
+            self.args = args
+            return self.fn(*args, **kwargs)
+
+        setattr(self.module, self.name, inner)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.fn)
+
+
+def phase_resident(dev, index_dir, docs, queries, n_queries, probe_pids, counters):
+    """Phase 3 (dedup stage 6) and 3b (per-query stage 6)."""
+    import torch
+
+    from fast_plaid_tpu_torch.ops.rerank_dedup import dedup_viable
+    from fast_plaid_tpu_torch.search import FastPlaid, engine
+
+    fp = FastPlaid(index_dir, device=str(dev), low_memory=False)
+    t0 = time.perf_counter()
+    fp.create(docs, show_progress=False)
+    torch.cuda.synchronize()
+    create_s = time.perf_counter() - t0
+    loaded = fp.indices[str(dev)]
+    ispec = loaded.ispec
+    log(f"# create: {create_s:.2f} s, {ispec}")
+    if loaded.dev.emb_cache is None or loaded.low_memory:
+        raise AssertionError("the bf16 corpus cache is not resident")
+    np_rows = loaded.dev.emb_cache.shape[0]
+    viable = dedup_viable(np_rows, 256, N_FULL // 2, Q_LEN, DIM)
+    log(f"# emb_cache resident: {tuple(loaded.dev.emb_cache.shape)} "
+        f"{loaded.dev.emb_cache.dtype}; dedup_viable={viable}")
+    if not viable:
+        raise AssertionError("dedup_viable does not hold at this shape")
+    res = api_search(fp, queries, counters, n_queries, probe_pids, "resident",
+                     ("segmented_estimate", "maxsim_gather_scores_dedup"))
+
+    # The same tiles through the engine: kernels vs plain versions.
+    kw = engine_kwargs(loaded, fp.mem_budget)
+    worst = 0.0
+    with Recorder(engine, "segmented_estimate") as est_rec, Recorder(
+        engine, "maxsim_gather_scores_dedup"
+    ) as dd_rec:
         for t_start in (0, len(queries) - 256):
             tile = torch.from_numpy(queries[t_start : t_start + 256].astype(np.float16)).to(dev)
             with torch.inference_mode():
+                k_ids, k_sc = engine.search_impl(
+                    loaded.dev, tile, None, use_estimate_kernel=True,
+                    use_rerank_kernel=True, **kw)
                 if t_start == 0:
-                    engine.segmented_estimate = recorder(segmented_estimate, "est")
-                    engine.maxsim_gather_scores = recorder(maxsim_gather_scores, "rr")
-                try:
-                    k_ids, k_sc = engine.search_impl(
-                        loaded.dev, tile, None, use_estimate_kernel=True,
-                        use_rerank_kernel=True, **kw)
-                finally:
-                    engine.segmented_estimate = segmented_estimate
-                    engine.maxsim_gather_scores = maxsim_gather_scores
+                    est_args, dd_args = est_rec.args, dd_rec.args
                 p_ids, p_sc = engine.search_impl(
                     loaded.dev, tile, None, use_estimate_kernel=False,
                     use_rerank_kernel=False, **kw)
@@ -350,37 +558,172 @@ def phase_main_path(dev, n_docs: int, n_queries: int, seed: int) -> dict:
                 raise AssertionError(
                     f"kernel-path and plain-path top-{TOP_K} differ beyond ties "
                     f"(tile at {t_start}, max score diff {err})")
-        log(f"# kernel path vs plain path: top-{TOP_K} equal up to ties, "
-            f"max score diff {worst:.3e}")
+    log(f"# [resident] kernel path vs plain path: top-{TOP_K} equal up to ties, "
+        f"max score diff {worst:.3e}")
+    tile = torch.from_numpy(queries[:256].astype(np.float16)).to(dev)
 
-        # Latency of one 256-query tile through the engine with the kernels,
-        # host clock around work that ends in a device synchronize.
-        tile = torch.from_numpy(queries[:256].astype(np.float16)).to(dev)
-        lat = []
+    def run_tile():
         with torch.inference_mode():
-            for _ in range(30):
-                t0 = time.perf_counter()
-                engine.search_impl(loaded.dev, tile, None, use_estimate_kernel=True,
-                                   use_rerank_kernel=True, **kw)
-                torch.cuda.synchronize()
-                lat.append((time.perf_counter() - t0) * 1e3)
-        p50, p99 = (float(np.percentile(lat, p)) for p in (50, 99))
-        log(f"# 256-query tile latency over 30 tiles: p50 {p50:.3f} ms, "
-            f"p99 {p99:.3f} ms")
+            engine.search_impl(loaded.dev, tile, None, use_estimate_kernel=True,
+                               use_rerank_kernel=True, **kw)
 
-        est = check_estimate(*captured["est"], "main_path_inputs", timing=True)
-        rr = check_rerank(*captured["rr"], "main_path_inputs", timing=True)
-        return {
-            "launches": launches,
-            "est": est,
-            "rr": rr,
-            "qps": len(queries) / search_s,
-            "tile_ms": (p50, p99),
-            "create_s": create_s,
-            "hit1": hit1,
-        }
+    res["tile_ms"] = tile_latency(run_tile, "resident")
+    res["est"] = check_estimate(*est_args, "main_path_inputs", timing=True)
+    res["dedup"] = check_dedup(*dd_args, "main_path_inputs", timing=True)
+    res["rr"] = check_rerank(*dd_args, "main_path_inputs", timing=True)
+    res["create_s"] = create_s
+    res["ispec"] = ispec
+
+    # 3b: the per-query stage 6 (dedup off), on the same index and queries.
+    os.environ["FASTPLAID_RERANK_DEDUP"] = "0"
+    try:
+        res_k2 = api_search(fp, queries, counters, n_queries, probe_pids,
+                            "resident, dedup off",
+                            ("segmented_estimate", "maxsim_gather_scores"))
+        res_k2["tile_ms"] = tile_latency(run_tile, "resident, dedup off")
     finally:
-        shutil.rmtree(index_dir, ignore_errors=True)
+        del os.environ["FASTPLAID_RERANK_DEDUP"]
+    agree = float(np.mean([len(set(a) & set(b)) / TOP_K
+                           for a, b in zip(res["ids"], res_k2["ids"])]))
+    log(f"# [resident] top-{TOP_K} overlap, dedup vs per-query stage 6: {agree:.4f}")
+    fp.close()
+    return res, res_k2
+
+
+def phase_low_memory(dev, index_dir, queries, n_queries, probe_pids, counters, resident_ids):
+    """Phase 4: the default constructor (low_memory + q4 prefilter)."""
+    import torch
+
+    from fast_plaid_tpu_torch.search import FastPlaid, engine, searcher
+
+    t0 = time.perf_counter()
+    fp = FastPlaid(index_dir, device=str(dev))  # the defaults: low_memory=True
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    loaded = fp.indices[str(dev)]
+    d = loaded.dev
+    if not loaded.low_memory or d.residuals is not None or d.emb_q4 is None:
+        raise AssertionError(
+            f"default constructor: low_memory={loaded.low_memory}, residuals "
+            f"resident={d.residuals is not None}, emb_q4 resident={d.emb_q4 is not None}")
+    log(f"# [low_memory] opened in {load_s:.2f} s: residuals in host RAM, emb_q4 "
+        f"{tuple(d.emb_q4.shape)} {d.emb_q4.dtype} on {d.emb_q4.device}")
+    res = api_search(fp, queries, counters, n_queries, probe_pids, "low_memory",
+                     ("segmented_estimate", "maxsim_q4_gather_scores"))
+    agree = float(np.mean([len(set(a) & set(b)) / TOP_K
+                           for a, b in zip(res["ids"], resident_ids)]))
+    log(f"# [low_memory] top-{TOP_K} overlap with the resident path: {agree:.4f} "
+        "(not gated: the q4 prefilter narrows the exact pool)")
+    res["overlap_resident"] = agree
+
+    # One tile through the low_memory steps with the kernels and with the
+    # plain versions: the final top-10 must agree up to ties.
+    kw = engine_kwargs(loaded, fp.mem_budget)
+    ispec = loaded.ispec
+    pool = engine.rescue_pool(TOP_K)
+    gather_ms = []
+
+    def lm_tile(tile, kernels: bool, rec=None):
+        p2, stats = searcher._lm_candidates(
+            loaded, tile, n_ivf_probe=N_PROBE, n_full_scores=N_FULL,
+            cand_cap=kw["cand_cap"], approx_mode=kw["approx_mode"],
+            slot_budget=kw["slot_budget"], use_estimate_kernel=kernels,
+            rank_admit=kw["rank_admit"])
+        p2 = engine.q4_prefilter_core(
+            loaded.dev, p2, tile, sentinel_pid=ispec.sentinel_pid, pool=pool,
+            mem_budget=fp.mem_budget, use_kernel=kernels)
+        host = p2.cpu().numpy()
+        t0 = time.perf_counter()
+        rows = searcher.host_gather_rows(loaded, host, pin=True)
+        gather_ms.append((time.perf_counter() - t0) * 1e3)
+        return searcher._lm_finish(loaded, tile, p2, stats, rows, top_k=TOP_K,
+                                   mem_budget=fp.mem_budget)
+
+    worst = 0.0
+    with Recorder(engine, "maxsim_q4_gather_scores") as q4_rec:
+        for t_start in (0, len(queries) - 256):
+            tile = torch.from_numpy(queries[t_start : t_start + 256].astype(np.float16)).to(dev)
+            with torch.inference_mode():
+                k_ids, k_sc, _ = lm_tile(tile, True)
+                if t_start == 0:
+                    q4_args = q4_rec.args
+                p_ids, p_sc, _ = lm_tile(tile, False)
+            ok, err = same_topk(k_ids.cpu().numpy(), k_sc.cpu().numpy(),
+                                p_ids.cpu().numpy(), p_sc.cpu().numpy())
+            worst = max(worst, err)
+            if not ok:
+                raise AssertionError(
+                    f"low_memory kernel path and plain path top-{TOP_K} differ beyond "
+                    f"ties (tile at {t_start}, max score diff {err})")
+    log(f"# [low_memory] kernel prefilter vs plain prefilter: top-{TOP_K} equal up "
+        f"to ties, max score diff {worst:.3e}")
+    tile = torch.from_numpy(queries[:256].astype(np.float16)).to(dev)
+    gather_ms.clear()
+
+    def run_tile():
+        with torch.inference_mode():
+            lm_tile(tile, True)
+
+    res["tile_ms"] = tile_latency(run_tile, "low_memory (unpipelined)")
+    res["gather_ms"] = float(np.median(gather_ms))
+    # Bytes a tile gathers: residuals, int32 codes and a valid flag per token.
+    mb = 256 * pool * ispec.doc_cap * (loaded.host_residuals.shape[1] + 5) / 1e6
+    log(f"# [low_memory] host row gather of one tile (256 x {pool} rows x "
+        f"{ispec.doc_cap} tokens, {mb:.1f} MB): median {res['gather_ms']:.3f} ms, "
+        f"max {max(gather_ms):.3f} ms over {len(gather_ms)} tiles")
+    res["q4"] = check_q4(*q4_args, "main_path_inputs", timing=True)
+    res["load_s"] = load_s
+    fp.close()
+    return res
+
+
+def phase_q4_tier(dev, index_dir, ispec, queries, n_queries, probe_pids, counters):
+    """Phase 5: the resident q4 tier, engaged by a forced budget halfway
+    between the q4 cache's and the bf16 cache's size."""
+    import torch
+
+    from fast_plaid_tpu_torch.index.layout import emb_cache_bytes, q4_cache_bytes
+    from fast_plaid_tpu_torch.search import FastPlaid, engine
+
+    q4_b, emb_b = q4_cache_bytes(ispec), emb_cache_bytes(ispec)
+    budget = (q4_b + emb_b) // 2
+    log(f"# [q4 tier] q4 cache {q4_b / 1e9:.3f} GB, bf16 cache {emb_b / 1e9:.3f} GB, "
+        f"forced budget {budget / 1e9:.3f} GB")
+    t0 = time.perf_counter()
+    fp = FastPlaid(index_dir, device=str(dev), low_memory=False,
+                   emb_cache_budget_bytes=budget)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    loaded = fp.indices[str(dev)]
+    if loaded.dev.emb_cache is not None or loaded.dev.emb_q4 is None:
+        raise AssertionError("the q4 tier did not engage under the forced budget")
+    log(f"# [q4 tier] opened in {load_s:.2f} s: emb_cache None, emb_q4 "
+        f"{tuple(loaded.dev.emb_q4.shape)}")
+    res = api_search(fp, queries, counters, n_queries, probe_pids, "q4 tier",
+                     ("segmented_estimate", "maxsim_q4_gather_scores"))
+    kw = engine_kwargs(loaded, fp.mem_budget)
+    tile = torch.from_numpy(queries[:256].astype(np.float16)).to(dev)
+    with torch.inference_mode():
+        k_ids, k_sc = engine.search_impl(loaded.dev, tile, None, use_estimate_kernel=True,
+                                         use_rerank_kernel=True, **kw)
+        p_ids, p_sc = engine.search_impl(loaded.dev, tile, None, use_estimate_kernel=False,
+                                         use_rerank_kernel=False, **kw)
+    ok, err = same_topk(k_ids.cpu().numpy(), k_sc.cpu().numpy(),
+                        p_ids.cpu().numpy(), p_sc.cpu().numpy())
+    if not ok:
+        raise AssertionError(f"q4 tier kernel path and plain path differ (max {err})")
+    log(f"# [q4 tier] kernel path vs plain path: top-{TOP_K} equal up to ties, "
+        f"max score diff {err:.3e}")
+
+    def run_tile():
+        with torch.inference_mode():
+            engine.search_impl(loaded.dev, tile, None, use_estimate_kernel=True,
+                               use_rerank_kernel=True, **kw)
+
+    res["tile_ms"] = tile_latency(run_tile, "q4 tier")
+    res["load_s"] = load_s
+    fp.close()
+    return res
 
 
 def main() -> None:
@@ -418,11 +761,44 @@ def main() -> None:
 
     phase_kernels(dev, args.n_docs)
     torch.cuda.empty_cache()
-    main = phase_main_path(dev, args.n_docs, args.n_queries, args.seed)
-    log(f"# build {build_s:.2f} s, create {main['create_s']:.2f} s, "
-        f"search {main['qps']:.1f} QPS (top_k {TOP_K}, 256-query tiles), "
-        f"tile p50/p99 {main['tile_ms'][0]:.3f}/{main['tile_ms'][1]:.3f} ms, "
-        f"planted hit@1 {main['hit1']}, on {smi}")
+
+    t0 = time.perf_counter()
+    docs, rng = planted_corpus(args.n_docs, args.seed)
+    probe_rng = np.random.default_rng(7)
+    probe_pids = probe_rng.integers(0, args.n_docs, 64)
+    probes = np.stack([docs[p][:Q_LEN] for p in probe_pids])
+    rand_q = rng.standard_normal((args.n_queries, Q_LEN, DIM), dtype=np.float32)
+    rand_q /= np.linalg.norm(rand_q, axis=-1, keepdims=True)
+    queries = np.concatenate([rand_q, probes])
+    log(f"# corpus: {args.n_docs} docs, {sum(len(d) for d in docs)} tokens in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    counters = Counters()
+    index_dir = os.path.join(ROOT, "build", "chip_smoke_index")
+    shutil.rmtree(index_dir, ignore_errors=True)
+    try:
+        main_res, k2_res = phase_resident(dev, index_dir, docs, queries, args.n_queries,
+                                          probe_pids, counters)
+        del docs
+        torch.cuda.empty_cache()
+        lm_res = phase_low_memory(dev, index_dir, queries, args.n_queries, probe_pids,
+                                  counters, main_res["ids"])
+        torch.cuda.empty_cache()
+        q4_res = phase_q4_tier(dev, index_dir, main_res["ispec"], queries,
+                               args.n_queries, probe_pids, counters)
+    finally:
+        shutil.rmtree(index_dir, ignore_errors=True)
+
+    for label, r in (("resident (dedup stage 6)", main_res),
+                     ("resident, dedup off (per-query stage 6)", k2_res),
+                     ("low_memory + q4 prefilter (default constructor)", lm_res),
+                     ("resident q4 tier (forced budget)", q4_res)):
+        log(f"# summary [{label}]: {r['qps']:.1f} API QPS (top_k {TOP_K}, 256-query "
+            f"tiles), tile p50/p99 {r['tile_ms'][0]:.3f}/{r['tile_ms'][1]:.3f} ms, "
+            f"planted hit@1 {r['hit1']}, on {smi}")
+    log(f"# build {build_s:.2f} s, create {main_res['create_s']:.2f} s, low_memory "
+        f"open {lm_res['load_s']:.2f} s, q4 tier open {q4_res['load_s']:.2f} s, "
+        f"host gather {lm_res['gather_ms']:.3f} ms/tile")
 
     kernels = [
         {
@@ -430,20 +806,40 @@ def main() -> None:
             "route": "cuda",
             "source": "fast_plaid_tpu_torch/csrc/estimate_kernel.cu",
             "replaces": "fast_plaid_tpu/ops/estimate_kernel.py:46",
-            "launches": main["launches"]["segmented_estimate"],
-            "max_abs_err": main["est"]["max_abs_err"],
-            "ms": main["est"]["ms"],
-            "plain_ms": main["est"]["plain_ms"],
+            "launches": main_res["launches"]["segmented_estimate"],
+            "max_abs_err": main_res["est"]["max_abs_err"],
+            "ms": main_res["est"]["ms"],
+            "plain_ms": main_res["est"]["plain_ms"],
         },
         {
             "name": "maxsim_gather_scores",
             "route": "cuda",
             "source": "fast_plaid_tpu_torch/csrc/rerank_kernel.cu",
             "replaces": "fast_plaid_tpu/ops/rerank_kernel.py:37",
-            "launches": main["launches"]["maxsim_gather_scores"],
-            "max_abs_err": main["rr"]["max_abs_err"],
-            "ms": main["rr"]["ms"],
-            "plain_ms": main["rr"]["plain_ms"],
+            "launches": k2_res["launches"]["maxsim_gather_scores"],
+            "max_abs_err": main_res["rr"]["max_abs_err"],
+            "ms": main_res["rr"]["ms"],
+            "plain_ms": main_res["rr"]["plain_ms"],
+        },
+        {
+            "name": "maxsim_q4_gather_scores",
+            "route": "cuda",
+            "source": "fast_plaid_tpu_torch/csrc/q4_rerank_kernel.cu",
+            "replaces": "fast_plaid_tpu/ops/rerank_kernel.py:198",
+            "launches": lm_res["launches"]["maxsim_q4_gather_scores"],
+            "max_abs_err": lm_res["q4"]["max_abs_err"],
+            "ms": lm_res["q4"]["ms"],
+            "plain_ms": lm_res["q4"]["plain_ms"],
+        },
+        {
+            "name": "maxsim_gather_scores_dedup",
+            "route": "cuda",
+            "source": "fast_plaid_tpu_torch/csrc/rerank_dedup_kernel.cu",
+            "replaces": "fast_plaid_tpu/ops/rerank_dedup.py:153",
+            "launches": main_res["launches"]["maxsim_gather_scores_dedup"],
+            "max_abs_err": main_res["dedup"]["max_abs_err"],
+            "ms": main_res["dedup"]["ms"],
+            "plain_ms": main_res["dedup"]["plain_ms"],
         },
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -2,12 +2,12 @@
 
 The port of ``fast_plaid_tpu`` (JAX/XLA/Pallas), module for module: the
 same on-disk index format (``layout_version: 1``), the same search cascade
-and the same public API. Plain tensor code is PyTorch; the two Pallas
-kernels of the main search path are CUDA C++ kernels for ``sm_90a``
-(``csrc/``), built with nvcc at first use and bound through ctypes.
+and the same public API. Plain tensor code is PyTorch; each Pallas kernel of
+the JAX package is a CUDA C++ kernel for ``sm_90a`` (``csrc/``), built with
+nvcc at first use and bound through ctypes.
 
     from fast_plaid_tpu_torch import search
-    engine = search.FastPlaid(index="index_dir", device="cuda", low_memory=False)
+    engine = search.FastPlaid(index="index_dir", device="cuda")
     engine.create(documents_embeddings=[...])
     engine.search(queries_embeddings=...)
 

@@ -4,15 +4,20 @@ Port of the full-cap branch of ``fast_plaid_tpu/index/layout.py``. Documents
 live doc-major and padded, so one row gather fetches a whole document:
 
 * ``codes``       [Np, doc_cap]       int32
-* ``residuals``   [Np, doc_cap * PD]  uint8 (PD bytes per token, row-flat)
+* ``residuals``   [Np, doc_cap * PD]  uint8 (PD bytes per token, row-flat;
+                                      None in low_memory, where they stay in
+                                      host RAM)
 * ``doc_lengths`` [Np]                int32 (0 beyond n_docs)
 * ``emb_cache``   [Np, doc_cap, D]    bf16 decompressed corpus (optional)
+* ``emb_q4``      [Np * doc_cap/2, D] uint8 4-bit prefilter cache (optional,
+                                      ``ops/q4cache.py``), with ``q4_scale``
+                                      [Np] float32
 
 IVF cells keep the flat + offsets form with every cell starting on a
 multiple of ``IVF_ALIGN``, so candidate windows are whole rows of
 ``ivf.view(-1, IVF_ALIGN)``. One sentinel document (pid == n_docs, length 0)
-absorbs invalid candidate slots. The length-bucketed layout, the 4-bit q4
-cache and low_memory host residuals are not ported yet (ROADMAP.md §1).
+absorbs invalid candidate slots. The length-bucketed layout is not ported
+yet (ROADMAP.md §1).
 """
 
 from __future__ import annotations
@@ -34,6 +39,9 @@ __all__ = [
     "gather_res",
     "build_emb_cache",
     "emb_cache_bytes",
+    "build_q4_cache",
+    "q4_cache_bytes",
+    "quantize_q4_rows",
     "device_index_from_arrays",
     "IVF_ALIGN",
 ]
@@ -54,12 +62,14 @@ class DeviceIndex:
     centroids: torch.Tensor  # [Kp, D] float32, rows >= K are zero
     bucket_weights: torch.Tensor  # [2^nbits] float32
     codes: torch.Tensor  # [Np, doc_cap] int32 doc-major
-    residuals: torch.Tensor  # [Np, doc_cap * PD] uint8
+    residuals: torch.Tensor | None  # [Np, doc_cap * PD] uint8 (None: low_memory)
     doc_lengths: torch.Tensor  # [Np] int32 (0 beyond n_docs)
     ivf: torch.Tensor  # [Ip] int32 (pids, grouped by cell)
     ivf_offsets: torch.Tensor  # [Kp + 8] int32
     ivf_lengths: torch.Tensor  # [Kp + 8] int32 (0 beyond K)
     emb_cache: torch.Tensor | None = None  # [Np, doc_cap, D] bf16
+    emb_q4: torch.Tensor | None = None  # [Np * doc_cap/2, D] uint8 (2-D)
+    q4_scale: torch.Tensor | None = None  # [Np] float32 per-document scale
 
 
 @dataclass(frozen=True)
@@ -133,11 +143,14 @@ def to_device(
     cell_cap: int | None = None,
     pad_docs_to: int | None = None,
     pad_ivf_to: int | None = None,
+    residuals_on_device: bool = True,
     length_buckets: int = 0,
 ) -> tuple[DeviceIndex, IndexSpec]:
     """Pad host arrays (token-major flats) into the doc-major device layout.
 
-    ``length_buckets > 1`` asks for the length-bucketed layout. Where
+    ``residuals_on_device=False`` is low_memory: the residuals stay in host
+    RAM and ``DeviceIndex.residuals`` is None. ``length_buckets > 1`` asks
+    for the length-bucketed layout (device-resident residuals only). Where
     ``plan_buckets`` would choose buckets this raises NotImplementedError
     rather than silently taking the single-cap layout.
     """
@@ -163,7 +176,7 @@ def to_device(
     codes2d = np.zeros((np_docs, doc_cap), dtype=np.int32)
     lengths = np.zeros((np_docs,), dtype=np.int32)
     clipped = np.minimum(doc_lengths, doc_cap)
-    if length_buckets > 1 and n_real_docs:
+    if length_buckets > 1 and residuals_on_device and n_real_docs:
         caps = plan_buckets(clipped, doc_cap, max_buckets=length_buckets)
         if caps:
             msg = (
@@ -172,7 +185,11 @@ def to_device(
                 "§1, length buckets). Pass length_buckets=0."
             )
             raise NotImplementedError(msg)
-    residuals2d = np.zeros((np_docs, doc_cap, pd), dtype=np.uint8)
+    residuals2d = (
+        np.zeros((np_docs, doc_cap, pd), dtype=np.uint8)
+        if residuals_on_device
+        else None
+    )
     if n_real_docs:
         doc_ids = np.repeat(np.arange(n_real_docs, dtype=np.int64), doc_lengths)
         within = np.arange(n_tokens, dtype=np.int64) - np.repeat(
@@ -181,9 +198,11 @@ def to_device(
         keep = within < doc_cap
         dst = doc_ids[keep] * doc_cap + within[keep]
         codes2d.reshape(-1)[dst] = np.asarray(codes, np.int32)[keep]
-        residuals2d.reshape(-1, pd)[dst] = np.asarray(residuals)[keep]
+        if residuals2d is not None:
+            residuals2d.reshape(-1, pd)[dst] = np.asarray(residuals)[keep]
     lengths[:n_real_docs] = clipped.astype(np.int32)
-    residuals2d = residuals2d.reshape(np_docs, doc_cap * pd)
+    if residuals2d is not None:
+        residuals2d = residuals2d.reshape(np_docs, doc_cap * pd)
 
     cent_p = np.zeros((kp, dim), dtype=np.float32)
     cent_p[:k] = centroids.astype(np.float32, copy=False)
@@ -231,7 +250,7 @@ def to_device(
         centroids=put(cent_p),
         bucket_weights=put(np.asarray(bucket_weights, dtype=np.float32)),
         codes=put(codes2d),
-        residuals=put(residuals2d),
+        residuals=put(residuals2d) if residuals2d is not None else None,
         doc_lengths=put(lengths),
         ivf=put(ivf_p),
         ivf_offsets=put(ivf_off),
@@ -249,7 +268,7 @@ def to_device(
     return dev, spec
 
 
-_UNPORTED_FIELDS = ("emb_q4", "q4_scale", "doc_bucket", "doc_bucket_row", "buckets")
+_UNPORTED_FIELDS = ("doc_bucket", "doc_bucket_row", "buckets")
 
 
 def device_index_from_arrays(
@@ -261,8 +280,9 @@ def device_index_from_arrays(
 
     ``arrays`` maps DeviceIndex field names to numpy arrays (for example
     ``{f: np.asarray(getattr(dev, f))}`` over another implementation's
-    index); bf16 arrays (``ml_dtypes.bfloat16``) are accepted. Fields of
-    layouts this package does not implement must be absent or empty.
+    index); bf16 arrays (``ml_dtypes.bfloat16``) are accepted, and an
+    absent ``residuals`` (low_memory) becomes None. Fields of layouts this
+    package does not implement must be absent or empty.
     """
     device = torch.device(device)
     for name in _UNPORTED_FIELDS:
@@ -287,6 +307,7 @@ def device_index_from_arrays(
         kwargs["residuals"] = kwargs["residuals"].reshape(
             kwargs["codes"].shape[0], -1
         )
+    kwargs.setdefault("residuals", None)
     spec_keys = {f.name for f in dataclasses.fields(IndexSpec)}
     spec = IndexSpec(
         **{
@@ -317,9 +338,10 @@ def build_emb_cache(
 ) -> DeviceIndex:
     """Decompress the whole corpus once into a bf16 device cache.
 
-    Afterwards stage 6 is a pure gather + MaxSim over cached rows.
+    Afterwards stage 6 is a pure gather + MaxSim over cached rows. Needs
+    device-resident residuals.
     """
-    if dev.emb_cache is not None:
+    if dev.residuals is None or dev.emb_cache is not None:
         return dev
     cache = _decompress_2d(
         dev.codes,
@@ -353,3 +375,52 @@ def _decompress_2d(codes, residuals, centroids, bucket_weights, *, nbits, block)
             out_dtype=torch.bfloat16,
         )
     return out
+
+
+def q4_cache_bytes(ispec: IndexSpec) -> int:
+    """Device-memory cost of the 4-bit prefilter cache (packed data + scales)."""
+    np_docs = round_up(ispec.n_docs + 1, 8)
+    return np_docs * (ispec.doc_cap * ispec.dim // 2 + 4)
+
+
+def quantize_q4_rows(codes_rows, res_rows, centroids, bucket_weights, *, nbits):
+    """Decompress + q4-quantize doc-major rows.
+
+    [N, cap] codes + [N, cap, PD] residuals -> ([N * cap/2, D] uint8 packed,
+    [N] float32 scales): the 2-D layout in which document pid's block is
+    rows [pid * cap/2, (pid + 1) * cap/2), as the q4 kernel reads it.
+    """
+    from fast_plaid_tpu_torch.ops.q4cache import quantize_emb_q4
+
+    n, cap = codes_rows.shape
+    emb = codec.decompress(codes_rows, res_rows, centroids, bucket_weights, nbits)
+    packed, scale = quantize_emb_q4(emb)
+    return packed.reshape(n * (cap // 2), -1), scale
+
+
+def build_q4_cache(
+    dev: DeviceIndex, ispec: IndexSpec, block: int = 2048
+) -> DeviceIndex:
+    """Quantize the decompressed corpus into the 4-bit prefilter cache.
+
+    Decompresses and quantizes ``block`` documents at a time into one
+    preallocated tensor, so the decompressed corpus never exists whole.
+    Needs device-resident residuals.
+    """
+    if dev.residuals is None or dev.emb_q4 is not None:
+        return dev
+    n, cap = dev.codes.shape
+    caph = cap // 2
+    res = dev.residuals.reshape(n, cap, -1)
+    out = torch.empty((n * caph, ispec.dim), dtype=torch.uint8, device=dev.codes.device)
+    scale = torch.empty((n,), dtype=torch.float32, device=dev.codes.device)
+    for start in range(0, n, max(block, 1)):
+        end = min(start + block, n)
+        out[start * caph : end * caph], scale[start:end] = quantize_q4_rows(
+            dev.codes[start:end],
+            res[start:end],
+            dev.centroids,
+            dev.bucket_weights,
+            nbits=ispec.nbits,
+        )
+    return dataclasses.replace(dev, emb_q4=out, q4_scale=scale)

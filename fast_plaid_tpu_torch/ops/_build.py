@@ -52,6 +52,16 @@ _SIGNATURES = {
     # (emb, n_rows, doc_cap, D, pids, lens, queries, B, R, Q, out, stream)
     "fp_maxsim_gather": ([_P, _I, _I, _I, _P, _P, _P, _I, _I, _I, _P, _P], _I),
     "fp_maxsim_gather_smem_bytes": ([_I, _I, _I], ctypes.c_longlong),
+    # (emb_q4, scale, n_docs, caph, D, pids, lens, queries, B, R, Q, out, stream)
+    "fp_maxsim_q4_gather": ([_P, _P, _I, _I, _I, _P, _P, _P, _I, _I, _I, _P, _P], _I),
+    "fp_maxsim_q4_gather_smem_bytes": ([_I, _I, _I], ctypes.c_longlong),
+    # (emb, n_rows, doc_cap, D, epid, elen, ecnt, eqidx, n_entries, E, queries,
+    #  Q, G, out, stream)
+    "fp_maxsim_dedup": (
+        [_P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P, _I, _I, _P, _P],
+        _I,
+    ),
+    "fp_maxsim_dedup_smem_bytes": ([_I, _I, _I, _I], ctypes.c_longlong),
 }
 
 

@@ -9,15 +9,24 @@ with bf16 inputs and float32 accumulation; an empty row (length 0) scores
 
 ``maxsim_gather_scores`` launches the CUDA kernel (``csrc/rerank_kernel.cu``)
 for tensors on a GPU and runs the plain PyTorch version,
-``maxsim_gather_scores_plain``, for tensors on the CPU. The q4 variant
-(``_q4_kernel``) is not ported yet (ROADMAP.md §2).
+``maxsim_gather_scores_plain``, for tensors on the CPU.
+
+``maxsim_q4_gather_scores`` is the same quantity over the 4-bit prefilter
+cache (``ops/q4cache.py``), port of ``_q4_kernel``: the CUDA kernel
+``csrc/q4_rerank_kernel.cu`` on a GPU, ``maxsim_q4_gather_scores_plain`` on
+the CPU.
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["maxsim_gather_scores", "maxsim_gather_scores_plain"]
+__all__ = [
+    "maxsim_gather_scores",
+    "maxsim_gather_scores_plain",
+    "maxsim_q4_gather_scores",
+    "maxsim_q4_gather_scores_plain",
+]
 
 _MAX_SMEM = 227 * 1024
 
@@ -134,3 +143,141 @@ def maxsim_gather_scores(
 
 
 maxsim_gather_scores.launches = 0
+
+
+def maxsim_q4_gather_scores_plain(
+    emb_q4: torch.Tensor,  # [Np * caph, D] uint8 (caph = doc_cap / 2)
+    q4_scale: torch.Tensor,  # [Np] float32
+    pids: torch.Tensor,  # [B, R] int32
+    lens: torch.Tensor,  # [B, R] int32 valid token counts
+    queries: torch.Tensor,  # [B, Q, D] (rounded to bf16)
+    *,
+    mem_budget: int = 256 * 1024 * 1024,
+) -> torch.Tensor:
+    """Plain PyTorch version of the q4 kernel: [B, R] float32.
+
+    Pids are clipped to [0, Np - 1]. Each nibble plane is scored on its own
+    (low plane token t valid iff t < len, high plane iff t + caph < len),
+    the planes are max-combined, and the per-document scale multiplies the
+    sum; len <= 0 scores -inf. Chunked over R within ``mem_budget``.
+    """
+    b, r = pids.shape
+    npd = q4_scale.shape[0]
+    caph = emb_q4.shape[0] // npd
+    d = emb_q4.shape[1]
+    q = queries.shape[1]
+    qt = queries.to(torch.bfloat16).to(torch.float32).transpose(1, 2)  # [B, D, Q]
+    p = torch.clamp(pids, 0, npd - 1).long()
+    tok = torch.arange(caph, device=pids.device)
+    per_row = b * caph * max(d * 4, q * 4) * 3
+    r_chunk = max(1, min(r, mem_budget // max(1, per_row)))
+    out = torch.empty((b, r), dtype=torch.float32, device=pids.device)
+    for s in range(0, r, r_chunk):
+        e = min(s + r_chunk, r)
+        ridx = p[:, s:e, None] * caph + tok
+        rows = emb_q4[ridx].to(torch.int32).reshape(b, (e - s) * caph, d)
+        lens_c = lens[:, s:e, None]
+        planes = []
+        for vals, first in (((rows & 15) - 8, 0), ((rows >> 4) - 8, caph)):
+            ts = torch.bmm(vals.to(torch.float32), qt).reshape(b, e - s, caph, q)
+            valid = (tok + first) < lens_c
+            planes.append(torch.where(valid[..., None], ts, float("-inf")))
+        raw = torch.sum(torch.amax(torch.maximum(*planes), dim=2), dim=-1)
+        scaled = raw * q4_scale[p[:, s:e]]
+        out[:, s:e] = torch.where(lens[:, s:e] > 0, scaled, float("-inf"))
+    return out
+
+
+def maxsim_q4_gather_scores(
+    emb_q4: torch.Tensor,  # [Np * caph, D] uint8
+    q4_scale: torch.Tensor,  # [Np] float32
+    pids: torch.Tensor,  # [B, R] int32
+    lens: torch.Tensor,  # [B, R] int32 valid token counts
+    queries: torch.Tensor,  # [B, Q, D] (cast to bf16)
+) -> torch.Tensor:
+    """Fused q4 gather + dequantization + MaxSim: [B, R] float32 (-inf where
+    len <= 0), scaled by ``q4_scale[clip(pid)]``.
+
+    Launches the CUDA kernel for CUDA tensors (counted in
+    ``maxsim_q4_gather_scores.launches``) and the plain version for CPU
+    tensors.
+    """
+    if pids.device.type == "cpu":
+        return maxsim_q4_gather_scores_plain(emb_q4, q4_scale, pids, lens, queries)
+    from fast_plaid_tpu_torch.ops._build import check, load_library
+
+    name = "maxsim_q4_gather_scores"
+    if pids.device.type != "cuda":
+        msg = f"{name}: unsupported device {pids.device}"
+        raise ValueError(msg)
+    if emb_q4.ndim != 2 or emb_q4.dtype != torch.uint8:
+        msg = f"{name}: emb_q4 must be a [Np * doc_cap/2, D] uint8 tensor"
+        raise TypeError(msg)
+    if q4_scale.ndim != 1 or q4_scale.dtype != torch.float32:
+        msg = f"{name}: q4_scale must be a [Np] float32 tensor"
+        raise TypeError(msg)
+    npd = q4_scale.shape[0]
+    d = emb_q4.shape[1]
+    if npd < 1 or emb_q4.shape[0] % npd:
+        msg = f"{name}: emb_q4 rows ({emb_q4.shape[0]}) are not a multiple of {npd}"
+        raise ValueError(msg)
+    caph = emb_q4.shape[0] // npd
+    b, r = pids.shape
+    if lens.shape != pids.shape:
+        msg = f"lens {tuple(lens.shape)} must match pids {tuple(pids.shape)}"
+        raise ValueError(msg)
+    if queries.ndim != 3 or queries.shape[0] != b or queries.shape[2] != d:
+        msg = f"queries must be [B={b}, Q, D={d}]; got {tuple(queries.shape)}"
+        raise ValueError(msg)
+    if pids.dtype != torch.int32 or lens.dtype != torch.int32:
+        msg = f"{name}: pids and lens must be int32"
+        raise TypeError(msg)
+    others = {"emb_q4": emb_q4, "q4_scale": q4_scale, "lens": lens, "queries": queries}
+    for label, t in others.items():
+        if t.device != pids.device:
+            msg = f"{name}: {label} is on {t.device}, not {pids.device}"
+            raise ValueError(msg)
+    q = queries.shape[1]
+    qb = queries.to(torch.bfloat16)
+    if not all(t.is_contiguous() for t in (emb_q4, q4_scale, pids, lens, qb)):
+        msg = f"{name}: inputs must be contiguous"
+        raise ValueError(msg)
+    if d % 16 or q < 1 or b > 65535:
+        msg = (
+            f"{name}: needs D a multiple of 16, Q >= 1 and B <= 65535; "
+            f"got D={d}, Q={q}, B={b}"
+        )
+        raise ValueError(msg)
+    if emb_q4.data_ptr() % 16 or qb.data_ptr() % 16:
+        msg = f"{name}: emb_q4 and queries must be 16-byte aligned"
+        raise ValueError(msg)
+    lib = load_library()
+    if lib.fp_maxsim_q4_gather_smem_bytes(caph, d, q) > _MAX_SMEM:
+        msg = (
+            f"{name}: doc_cap={2 * caph}, D={d}, Q={q} needs more shared "
+            "memory than one block has"
+        )
+        raise ValueError(msg)
+    out = torch.empty((b, r), dtype=torch.float32, device=pids.device)
+    stream = torch.cuda.current_stream(pids.device).cuda_stream
+    status = lib.fp_maxsim_q4_gather(
+        emb_q4.data_ptr(),
+        q4_scale.data_ptr(),
+        npd,
+        caph,
+        d,
+        pids.data_ptr(),
+        lens.data_ptr(),
+        qb.data_ptr(),
+        b,
+        r,
+        q,
+        out.data_ptr(),
+        stream,
+    )
+    check(status, name)
+    maxsim_q4_gather_scores.launches += 1
+    return out
+
+
+maxsim_q4_gather_scores.launches = 0

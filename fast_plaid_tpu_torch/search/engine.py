@@ -9,15 +9,22 @@ Port of ``fast_plaid_tpu/search/engine.py``: the same static-shape cascade
   3. candidates from whole cells, as 128-aligned IVF row windows
   4. per-slot approximate estimates (``ops/estimate_kernel.py``)
   5. prune to the exact-rerank pool R = n_full_scores / pool_divisor
-  6. exact MaxSim over the pool (``ops/rerank_kernel.py`` over the bf16
-     corpus cache, or decompress + MaxSim)
+  6. exact MaxSim over the pool: over the bf16 corpus cache through the
+     dedup kernel (``ops/rerank_dedup.py``) where ``dedup_viable`` holds,
+     else the per-query kernel (``ops/rerank_kernel.py``); or decompress +
+     MaxSim, after the q4 prefilter (``maxsim_q4_gather_scores``) has
+     narrowed the pool where only the 4-bit cache is resident
   7. final top-k
 
+``rerank_rows`` and ``q4_prefilter_core`` are low_memory's device steps
+(``search/searcher.py``): the q4 prefilter, then the codec-exact rerank of
+rows gathered on the host.
+
 Ported here: the ``cells`` / ``cells_full`` estimators (the exhaustive and
-the budgeted chunked-window branches, with rank admission), the emb_cache and
-decompress rerank branches, and the numpy policy functions. The ``tokens``
-estimator, subsets, the q4 tier, length buckets and token-score matrices
-raise NotImplementedError (ROADMAP.md §1).
+the budgeted chunked-window branches, with rank admission), the emb_cache,
+q4 and decompress rerank branches, and the numpy policy functions. The
+``tokens`` estimator, subsets, length buckets and token-score matrices raise
+NotImplementedError (ROADMAP.md §1).
 
 Tie order follows the JAX package on its CPU backend: cell orderings and the
 stage-5 and stage-7 top-k use stable sorts, so equal scores keep the lower
@@ -44,7 +51,15 @@ from fast_plaid_tpu_torch.ops.estimate_kernel import (
     segmented_estimate_plain,
 )
 from fast_plaid_tpu_torch.ops.maxsim import maxsim_reduce
-from fast_plaid_tpu_torch.ops.rerank_kernel import maxsim_gather_scores
+from fast_plaid_tpu_torch.ops.q4cache import score_q4
+from fast_plaid_tpu_torch.ops.rerank_dedup import (
+    dedup_viable,
+    maxsim_gather_scores_dedup,
+)
+from fast_plaid_tpu_torch.ops.rerank_kernel import (
+    maxsim_gather_scores,
+    maxsim_q4_gather_scores,
+)
 
 __all__ = [
     "search_core",
@@ -52,6 +67,9 @@ __all__ = [
     "candidates_core",
     "candidates_impl",
     "final_topk_core",
+    "q4_prefilter_core",
+    "rerank_rows",
+    "rerank_rows_core",
     "candidate_capacity",
     "suggest_query_tile",
     "suggest_slot_budget",
@@ -412,6 +430,77 @@ def candidates_impl(
     return p2
 
 
+def rerank_rows(
+    codes_rows: torch.Tensor,  # [B, R, doc_cap] int32
+    res_rows: torch.Tensor,  # [B, R, doc_cap, PD] uint8
+    tok_valid: torch.Tensor,  # [B, R, doc_cap] bool
+    pids: torch.Tensor,  # [B, R] int32 (sentinel padding)
+    centroids: torch.Tensor,
+    bucket_weights: torch.Tensor,
+    queries: torch.Tensor,  # [B, Q, D]
+    *,
+    nbits: int,
+    sentinel_pid: int,
+    mem_budget: int = 256 * 1024 * 1024,
+) -> torch.Tensor:
+    """Stage 6 over pre-gathered token rows: decompress + exact MaxSim,
+    [B, R] float32 with -inf at sentinel slots. Chunked over R so that the
+    decompressed [B, Rc, doc_cap, D] tile stays within ``mem_budget``."""
+    queries = queries.to(torch.float32)
+    b, r, doc_cap = codes_rows.shape
+    q, d = queries.shape[1], queries.shape[2]
+    per_row = b * doc_cap * max(d * 4, q * 4)
+    r_chunk = max(4, min(r, mem_budget // max(1, per_row)))
+    parts = []
+    for s in range(0, r, r_chunk):
+        emb = codec.decompress(
+            codes_rows[:, s : s + r_chunk],
+            res_rows[:, s : s + r_chunk],
+            centroids,
+            bucket_weights,
+            nbits,
+            out_dtype=torch.bfloat16,
+        )
+        sc, _ = _exact_scores(emb, queries, tok_valid[:, s : s + r_chunk])
+        parts.append(torch.where(pids[:, s : s + r_chunk] == sentinel_pid, NEG, sc))
+    return torch.cat(parts, dim=1)
+
+
+def _q4_scores(dev: DeviceIndex, p2, queries, *, mem_budget: int, use_kernel: bool):
+    """[B, R] q4 prefilter scores of the pool: the q4 kernel wrapper, or the
+    plain ``score_q4``."""
+    if use_kernel:
+        safe = torch.clamp(p2, 0, dev.doc_lengths.shape[0] - 1).long()
+        return maxsim_q4_gather_scores(
+            dev.emb_q4, dev.q4_scale, p2, dev.doc_lengths[safe], queries
+        )
+    return score_q4(
+        dev.emb_q4, dev.q4_scale, dev.doc_lengths, p2, queries, mem_budget=mem_budget
+    )
+
+
+def q4_prefilter_core(
+    dev: DeviceIndex,
+    p2: torch.Tensor,  # [B, R] rerank pool (sentinel_pid padding)
+    queries: torch.Tensor,  # [B, Q, D]
+    *,
+    sentinel_pid: int,
+    pool: int,
+    mem_budget: int = 256 * 1024 * 1024,
+    use_kernel: bool = False,
+) -> torch.Tensor:
+    """Narrow the rerank pool through the q4 cache: [B, R] -> [B, pool] pids.
+
+    low_memory's phase 2: all R candidates are scored from the
+    device-resident q4 cache and the top ``pool`` go on to the host row
+    gather and the codec-exact rerank.
+    """
+    queries = queries.to(torch.float32)
+    pre = _q4_scores(dev, p2, queries, mem_budget=mem_budget, use_kernel=use_kernel)
+    s_m, i_m = _top_k(pre, min(pool, p2.shape[1]))
+    return torch.where(torch.isneginf(s_m), sentinel_pid, torch.gather(p2, 1, i_m))
+
+
 def _final_topk(exact: torch.Tensor, p2: torch.Tensor, top_k: int):
     r = p2.shape[1]
     kk = min(top_k, r)
@@ -447,7 +536,8 @@ def search_impl(
 
     ``use_estimate_kernel`` / ``use_rerank_kernel`` route stages 4 and 6
     through the kernel wrappers (the CUDA kernels on a GPU); False runs the
-    plain PyTorch versions.
+    plain PyTorch versions. Needs device-resident residuals unless the bf16
+    corpus cache is resident.
     """
     if want_tokens:
         msg = "token-score matrices are not ported yet (ROADMAP.md §1)"
@@ -477,12 +567,38 @@ def search_impl(
     b, q, d = queries.shape
     r = p2.shape[1]
 
+    # q4 prefilter tier: with only the 4-bit cache resident, score the whole
+    # pool from it and rescore exactly (codec) only the top rescue_pool.
+    # Exhaustive parameters promise brute-force identity, so no approximate
+    # narrowing applies there.
+    exhaustive = n_ivf_probe >= ispec.n_partitions or (
+        n_full_scores >= 2 * ispec.n_docs
+    )
+    q4_pool = rescue_pool(top_k)
+    if (
+        dev.emb_q4 is not None
+        and dev.emb_cache is None
+        and not ispec.bucket_caps
+        and not exhaustive
+        and q4_pool < r
+    ):
+        pre = _q4_scores(
+            dev, p2, queries, mem_budget=mem_budget, use_kernel=use_rerank_kernel
+        )
+        s_m, i_m = _top_k(pre, q4_pool)
+        p2 = torch.where(torch.isneginf(s_m), sent_pid, torch.gather(p2, 1, i_m))
+        r = q4_pool
+
     if use_rerank_kernel and dev.emb_cache is not None:
         # Fused gather + MaxSim: candidate rows stream into shared memory
-        # once and only [B, R] scores come back.
-        exact = maxsim_gather_scores(
-            dev.emb_cache, p2, dev.doc_lengths[p2.long()], queries
-        )
+        # once and only [B, R] scores come back. Where the tile's pools
+        # overlap enough (small corpus against B * R), the dedup kernel
+        # reads each (document, requester group) row once instead.
+        lens = dev.doc_lengths[p2.long()]
+        if dedup_viable(dev.emb_cache.shape[0], b, r, q, d):
+            exact = maxsim_gather_scores_dedup(dev.emb_cache, p2, lens, queries)
+        else:
+            exact = maxsim_gather_scores(dev.emb_cache, p2, lens, queries)
     else:
         # Chunk over the rerank set with the gathers inside each chunk, so
         # the [B, R, doc_cap, ...] token tensors never materialize in full.
@@ -515,6 +631,7 @@ def search_impl(
 # The JAX package jit-compiles these; PyTorch runs them eagerly.
 search_core = search_impl
 candidates_core = candidates_impl
+rerank_rows_core = rerank_rows
 final_topk_core = _final_topk
 
 

@@ -2,25 +2,32 @@
 
 Reads the on-disk artifacts once on the host, then materializes the padded
 device layout (``index/layout.py``) on every requested ``torch.device`` and,
-when it fits the budget, the bf16 decompressed-corpus cache.
+within the budget, a rerank cache: the bf16 decompressed corpus, or where
+that does not fit, the 4-bit q4 prefilter cache.
 
-low_memory (host-resident residuals streamed per query tile) is not ported
-yet: on CUDA it raises NotImplementedError; on the CPU it is ignored, as in
-the JAX package.
+low_memory keeps the residuals (the bulk of the index) in host RAM, as mmaps
+of the index files, and the searcher gathers only the rerank rows of each
+query tile there, codes included, and sends them to the device.
+The q4 cache is then built on the device from host rows, streamed once. On
+the CPU low_memory is ignored, as in the JAX package.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 
+import numpy as np
 import torch
 
 from fast_plaid_tpu_torch.index.layout import (
     DeviceIndex,
     IndexSpec,
     build_emb_cache,
+    build_q4_cache,
     emb_cache_bytes,
-    round_up,
+    q4_cache_bytes,
+    quantize_q4_rows,
     to_device,
 )
 from fast_plaid_tpu_torch.index.storage import load_index_data
@@ -29,7 +36,8 @@ __all__ = ["reload_index", "LoadedIndex", "default_emb_cache_budget"]
 
 
 class LoadedIndex:
-    """One device's resident index: tensors + static spec + the device."""
+    """One device's resident index: tensors + static spec + the device, and in
+    low_memory the host-RAM arrays the searcher gathers rerank rows from."""
 
     def __init__(
         self,
@@ -37,12 +45,22 @@ class LoadedIndex:
         ispec: IndexSpec,
         device: torch.device,
         ivf_lengths_host=None,
+        low_memory: bool = False,
+        host_codes: np.ndarray | None = None,
+        host_residuals: np.ndarray | None = None,
+        host_doc_offsets: np.ndarray | None = None,
+        host_doc_lengths: np.ndarray | None = None,
     ):
         self.dev = dev
         self.ispec = ispec
         self.device = device
         # Host-side IVF length stats feed candidate-capacity sizing.
         self.ivf_lengths_host = ivf_lengths_host
+        self.low_memory = low_memory
+        self.host_codes = host_codes  # [T] int32 token-major
+        self.host_residuals = host_residuals  # [T, PD] uint8
+        self.host_doc_offsets = host_doc_offsets  # [n_docs] int64
+        self.host_doc_lengths = host_doc_lengths  # [n_docs] int32
 
 
 def default_emb_cache_budget(device: torch.device) -> int:
@@ -61,14 +79,10 @@ def default_emb_cache_budget(device: torch.device) -> int:
     return max(0, int(0.95 * free) - 2 * 1024**3)
 
 
-def _q4_cache_bytes(ispec: IndexSpec) -> int:
-    np_docs = round_up(ispec.n_docs + 1, 8)
-    return np_docs * (ispec.doc_cap * ispec.dim // 2 + 4)
-
-
 def _construct(
     data,
     device: torch.device,
+    low_memory: bool,
     emb_cache_budget: int | None = None,
     length_buckets: int = 4,
 ) -> LoadedIndex:
@@ -82,25 +96,76 @@ def _construct(
         ivf_lengths=data.ivf_lengths,
         nbits=data.nbits,
         device=device,
-        length_buckets=length_buckets,
+        residuals_on_device=not low_memory,
+        length_buckets=0 if low_memory else length_buckets,
     )
     budget = (
         default_emb_cache_budget(device)
         if emb_cache_budget is None
         else emb_cache_budget
     )
-    if 0 < emb_cache_bytes(ispec) <= budget:
-        dev = build_emb_cache(dev, ispec)
-    elif ispec.dim % 2 == 0 and 0 < _q4_cache_bytes(ispec) <= budget:
-        # The JAX package builds its 4-bit prefilter cache here.
-        msg = (
-            f"the bf16 corpus cache ({emb_cache_bytes(ispec)} B) exceeds the "
-            f"budget ({budget} B) and the q4 tier that would take its place "
-            "is not ported yet (ROADMAP.md §1, q4 tier); raise "
-            "emb_cache_budget_bytes or set it to 0"
+    if not low_memory:
+        if 0 < emb_cache_bytes(ispec) <= budget:
+            dev = build_emb_cache(dev, ispec)
+        elif ispec.dim % 2 == 0 and 0 < q4_cache_bytes(ispec) <= budget:
+            # The bf16 cache does not fit and the q4 tier does: prefilter
+            # from the 4x smaller copy, rescore the top slice via the codec.
+            dev = build_q4_cache(dev, ispec)
+    host_kwargs = {}
+    if low_memory:
+        doc_lengths = np.asarray(data.doc_lengths, np.int64)
+        offsets = np.concatenate([[0], np.cumsum(doc_lengths)])[:-1].astype(np.int64)
+        host_kwargs = {
+            # The index files' mmaps as they are: pages load on demand.
+            "host_codes": data.codes,
+            "host_residuals": data.residuals,
+            "host_doc_offsets": offsets,
+            "host_doc_lengths": doc_lengths.astype(np.int32),
+        }
+    loaded = LoadedIndex(
+        dev,
+        ispec,
+        device,
+        ivf_lengths_host=data.ivf_lengths,
+        low_memory=low_memory,
+        **host_kwargs,
+    )
+    if low_memory and ispec.dim % 2 == 0 and 0 < q4_cache_bytes(ispec) <= budget:
+        _build_q4_from_host(loaded)
+    return loaded
+
+
+def _build_q4_from_host(loaded: LoadedIndex, block: int = 8192) -> None:
+    """Build the device q4 prefilter cache from host-resident residuals.
+
+    Streams doc-major row blocks to the device once (about the finished
+    cache's bytes) and quantizes them there into one preallocated tensor.
+    Afterwards the searcher scores whole rerank pools on the device and
+    gathers only the rescue pool's rows on the host.
+    """
+    from fast_plaid_tpu_torch.search.searcher import host_gather_rows
+
+    dev = loaded.dev
+    ispec = loaded.ispec
+    np_docs, cap = dev.codes.shape
+    caph = cap // 2
+    pin = loaded.device.type == "cuda"
+    out = torch.empty(
+        (np_docs * caph, ispec.dim), dtype=torch.uint8, device=loaded.device
+    )
+    scale = torch.empty((np_docs,), dtype=torch.float32, device=loaded.device)
+    for start in range(0, np_docs, block):
+        end = min(start + block, np_docs)
+        pids = np.arange(start, end, dtype=np.int64)[None]
+        codes_rows, res_rows, _ = host_gather_rows(loaded, pids, pin=pin)
+        out[start * caph : end * caph], scale[start:end] = quantize_q4_rows(
+            codes_rows[0].to(loaded.device, non_blocking=True),
+            res_rows[0].to(loaded.device, non_blocking=True),
+            dev.centroids,
+            dev.bucket_weights,
+            nbits=ispec.nbits,
         )
-        raise NotImplementedError(msg)
-    return LoadedIndex(dev, ispec, device, ivf_lengths_host=data.ivf_lengths)
+    loaded.dev = dataclasses.replace(dev, emb_q4=out, q4_scale=scale)
 
 
 def reload_index(
@@ -110,14 +175,10 @@ def reload_index(
     emb_cache_budget: int | None = None,
     length_buckets: int = 4,
 ) -> dict[str, LoadedIndex | None]:
-    """Load the index for each device; returns {str(device): LoadedIndex|None}."""
-    for d in devices:
-        if low_memory and d.type != "cpu":
-            msg = (
-                "pass low_memory=False; low_memory lands in a later PR "
-                "(ROADMAP.md §1, low_memory)"
-            )
-            raise NotImplementedError(msg)
+    """Load the index for each device; returns {str(device): LoadedIndex|None}.
+
+    low_memory is ignored on the CPU, where host and device memory are one.
+    """
     data = load_index_data(index_path)
     if data is None:
         return {str(d): None for d in devices}
@@ -125,6 +186,7 @@ def reload_index(
         str(d): _construct(
             data,
             d,
+            low_memory and d.type != "cpu",
             emb_cache_budget=emb_cache_budget,
             length_buckets=length_buckets,
         )

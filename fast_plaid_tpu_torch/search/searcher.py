@@ -1,10 +1,16 @@
 """Host-side search loop: query prep, tiling, result trimming.
 
-Port of the device-resident branch of ``fast_plaid_tpu/search/searcher.py``.
-Queries are padded to a static token cap, run through the cascade
-(``search/engine.py``) in fixed-size tiles, and trimmed back to Python
-result lists. On a GPU the cascade's stage 4 and stage 6 run the CUDA
-kernels; on the CPU their plain PyTorch versions.
+Port of ``fast_plaid_tpu/search/searcher.py``. Queries are padded to a
+static token cap, run through the cascade (``search/engine.py``) in
+fixed-size tiles, and trimmed back to Python result lists. On a GPU the
+cascade's kernels run (stage 4, the q4 prefilter, stage 6); on the CPU their
+plain PyTorch versions.
+
+A low_memory index keeps codes and residuals in host RAM. Its tiles run in
+a two-tile pipeline: the device candidate cascade (and, with the q4 cache
+resident, the q4 prefilter down to ``rescue_pool(top_k)`` rows a query),
+then a host gather of only those rows on a worker thread, then the
+codec-exact rerank of the gathered rows on the device.
 """
 
 from __future__ import annotations
@@ -13,6 +19,7 @@ import os
 import threading
 import warnings
 from collections import deque
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -20,6 +27,11 @@ import torch
 from fast_plaid_tpu_torch.index.layout import round_up
 from fast_plaid_tpu_torch.search.engine import (
     candidate_capacity,
+    candidates_core,
+    final_topk_core,
+    q4_prefilter_core,
+    rerank_rows_core,
+    rescue_pool,
     resolve_approx_mode,
     search_core,
     suggest_query_tile,
@@ -27,7 +39,12 @@ from fast_plaid_tpu_torch.search.engine import (
 )
 from fast_plaid_tpu_torch.search.load import LoadedIndex
 
-__all__ = ["search_on_device", "normalize_queries", "last_search_stats"]
+__all__ = [
+    "search_on_device",
+    "normalize_queries",
+    "last_search_stats",
+    "host_gather_rows",
+]
 
 # Stats of the most recent search_on_device call, keyed by thread id.
 _LAST_STATS: dict[int, dict] = {}
@@ -94,6 +111,152 @@ def _tile_size(ispec, q_cap: int, mem_budget: int, n_queries: int) -> int:
     kp = round_up(max(ispec.n_partitions, 1), 128)
     by_scores = max(1, mem_budget // max(1, q_cap * kp * 4 * 2))
     return int(max(1, min(256, by_scores, n_queries)))
+
+
+def _gather_windows(
+    src: np.ndarray, offs: np.ndarray, lens: np.ndarray, cap: int, pin: bool
+) -> torch.Tensor:
+    """Rows [off, off + len) of ``src`` [T, ...] for every window, zero-padded
+    to ``cap`` rows: [W, cap, ...], in pinned memory with ``pin``.
+
+    Tokens of one document are contiguous, so each window is one slice of an
+    overlapping-window view of ``src``, copied by ``index_select``. Windows
+    that the end of ``src`` cuts short are copied one by one.
+    """
+    t = src.shape[0]
+    w = offs.shape[0]
+    rest = src.shape[1:]
+    with warnings.catch_warnings():  # read-only mmaps: never written here
+        warnings.simplefilter("ignore", UserWarning)
+        src_t = torch.from_numpy(src)
+    out = torch.empty((w, cap, *rest), dtype=src_t.dtype, pin_memory=pin)
+    n_win = t - cap + 1
+    if n_win > 0:
+        win = src_t.as_strided((n_win, cap, *rest), (src_t.stride(0), *src_t.stride()))
+        start = np.clip(offs, 0, n_win - 1)
+        torch.index_select(win, 0, torch.from_numpy(start), out=out)
+    else:
+        out.zero_()
+        start = np.full_like(offs, -1)
+    for i in np.nonzero((start != offs) & (lens > 0))[0]:
+        base = min(max(int(offs[i]), 0), max(t - 1, 0))
+        avail = max(0, min(int(lens[i]), t - base))
+        out[i, :avail] = src_t[base : base + avail]
+        out[i, avail:] = 0
+    keep = torch.from_numpy(np.arange(cap) < lens[:, None])
+    out.mul_(keep.reshape(w, cap, *([1] * len(rest))))
+    return out
+
+
+def host_gather_rows(loaded: LoadedIndex, pids: np.ndarray, *, pin: bool = False):
+    """Gather the token windows of ``pids`` [B, R] from the host-RAM arrays.
+
+    Returns CPU tensors (codes_rows [B, R, doc_cap] int32, res_rows
+    [B, R, doc_cap, PD] uint8, tok_valid [B, R, doc_cap] bool), in pinned
+    memory with ``pin``. Tokens past a document's length are zero, and pids
+    outside [0, n_docs) give empty rows. This is low_memory's streaming
+    step: only these rows cross to the device. (The JAX package gathers with
+    its C++ extension; this is a torch gather on the host.)
+    """
+    doc_cap = loaded.ispec.doc_cap
+    n_docs = len(loaded.host_doc_lengths)
+    pids = np.asarray(pids, dtype=np.int64)
+    safe = np.clip(pids, 0, max(n_docs - 1, 0))
+    lens = np.where((pids < 0) | (pids >= n_docs), 0, loaded.host_doc_lengths[safe])
+    lens = np.minimum(lens, doc_cap).reshape(-1)
+    offs = np.asarray(loaded.host_doc_offsets, np.int64)[safe].reshape(-1)
+    codes = _gather_windows(loaded.host_codes, offs, lens, doc_cap, pin)
+    res = _gather_windows(loaded.host_residuals, offs, lens, doc_cap, pin)
+    tok_valid = torch.from_numpy(np.arange(doc_cap) < lens[:, None])
+    shape = (*pids.shape, doc_cap)
+    return (
+        codes.reshape(shape),
+        res.reshape(*shape, -1),
+        tok_valid.reshape(shape),
+    )
+
+
+def _lm_candidates(
+    loaded: LoadedIndex,
+    tile_dev: torch.Tensor,
+    *,
+    n_ivf_probe: int,
+    n_full_scores: int,
+    cand_cap: int | None,
+    approx_mode: str,
+    slot_budget: int | None = None,
+    use_estimate_kernel: bool = False,
+    pool_divisor: int = 2,
+    rank_admit: int = 0,
+):
+    """low_memory phase 1: the device candidate cascade -> (p2, stats)."""
+    return candidates_core(
+        loaded.dev,
+        tile_dev,
+        None,
+        ispec=loaded.ispec,
+        n_ivf_probe=n_ivf_probe,
+        n_full_scores=n_full_scores,
+        cand_cap=cand_cap,
+        approx_mode=approx_mode,
+        with_stats=True,
+        slot_budget=slot_budget,
+        use_estimate_kernel=use_estimate_kernel,
+        pool_divisor=pool_divisor,
+        rank_admit=rank_admit,
+    )
+
+
+def _lm_finish(
+    loaded: LoadedIndex,
+    tile_dev: torch.Tensor,
+    p2: torch.Tensor,
+    stats: torch.Tensor,
+    rows,
+    *,
+    top_k: int,
+    mem_budget: int,
+):
+    """low_memory phase 3: device rerank of the rows gathered on the host.
+
+    The token mask is rebuilt on the device from the resident lengths (the
+    same mask the host gather returns): a copy from pageable host memory
+    would wait for the whole stream, the next tile's cascade included.
+    """
+    ispec = loaded.ispec
+    codes_rows, res_rows = (x.to(loaded.device, non_blocking=True) for x in rows[:2])
+    lens = loaded.dev.doc_lengths[p2.long()]
+    tok_valid = torch.arange(ispec.doc_cap, device=p2.device) < lens[..., None]
+    exact = rerank_rows_core(
+        codes_rows,
+        res_rows,
+        tok_valid,
+        p2,
+        loaded.dev.centroids,
+        loaded.dev.bucket_weights,
+        tile_dev,
+        nbits=ispec.nbits,
+        sentinel_pid=ispec.sentinel_pid,
+        mem_budget=mem_budget,
+    )
+    fp, fs = final_topk_core(exact, p2, top_k)
+    return fp, fs, stats
+
+
+def _to_host_async(x: torch.Tensor):
+    """Start a device->host copy of ``x``: (host tensor, CUDA event or None).
+
+    On a GPU the copy goes into pinned memory behind the work already
+    enqueued, and the event marks its end, so a worker thread can wait for
+    this tensor alone instead of for the whole stream.
+    """
+    if x.device.type != "cuda":
+        return x, None
+    host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+    host.copy_(x, non_blocking=True)
+    ready = torch.cuda.Event()
+    ready.record(torch.cuda.current_stream(x.device))
+    return host, ready
 
 
 def search_on_device(
@@ -190,9 +353,30 @@ def search_on_device(
         )
     if max_tile is not None:
         b_tile = min(b_tile, max(1, int(max_tile)))  # user memory hint
+    exhaustive = n_ivf_probe >= ispec.n_partitions or (
+        n_full_scores >= 2 * ispec.n_docs
+    )
     if pool_divisor is None:
         pool_divisor = int(os.environ.get("FASTPLAID_POOL_DIV", "2"))
     pool_divisor = max(1, int(pool_divisor))
+    # With the q4 cache resident, only the top rescue_pool rows a query
+    # cross host->device for the codec-exact rescore.
+    lm_q4 = (
+        loaded.low_memory
+        and loaded.dev.emb_q4 is not None
+        and not exhaustive
+        and rescue_pool(top_k) < max(n_full_scores // pool_divisor, 1)
+    )
+    if loaded.low_memory:
+        # Bound the streamed rerank rows (codes int32 + residuals uint8 +
+        # valid flag per token) by the memory budget; the pipeline keeps two
+        # tiles in flight, so each gets half.
+        r_pool = (
+            rescue_pool(top_k) if lm_q4 else max(n_full_scores // pool_divisor, 1)
+        )
+        pd = loaded.host_residuals.shape[1]
+        per_q = r_pool * ispec.doc_cap * (pd + 5)
+        b_tile = min(b_tile, max(1, (mem_budget // 2) // max(per_q, 1)))
     b_tile = max(1, min(b_tile, nq))
 
     results: list = []
@@ -212,9 +396,13 @@ def search_on_device(
     # lose ~5e-4 relative in float16; the engine upcasts on arrival), and
     # stay float32 on the CPU.
     wire_dtype = np.float16 if on_gpu else np.float32
-    # Stage 6 runs the fused gather+MaxSim kernel whenever the bf16 corpus
-    # cache is resident on a GPU; stage 4 runs its kernel on any GPU.
-    use_kernel = on_gpu and loaded.dev.emb_cache is not None
+    # Stage 6 runs its kernels (the fused gather+MaxSim or its dedup variant
+    # over the bf16 cache, the q4 prefilter over the 4-bit cache) whenever
+    # one of the caches is resident on a GPU; stage 4 runs its kernel on any
+    # GPU.
+    use_kernel = on_gpu and (
+        loaded.dev.emb_cache is not None or loaded.dev.emb_q4 is not None
+    )
     est_kernel = on_gpu
 
     def make_tile(start: int):
@@ -258,40 +446,102 @@ def search_on_device(
                 ]
             )
 
-    # Dispatch ahead of conversion: the device->host copy in emit() waits
-    # for the device, so tile i converts only after tile i+1 is enqueued.
+    def gather_stage(p2_host, ready):
+        if ready is not None:
+            ready.synchronize()  # this tile's pool alone, not the whole stream
+        return host_gather_rows(loaded, p2_host.numpy(), pin=on_gpu)
+
+    def finish_stage(start: int, end: int, job) -> None:
+        try:
+            if isinstance(job, Exception):
+                raise job
+            tile_dev, p2, stats, fut = job
+            out = _lm_finish(
+                loaded, tile_dev, p2, stats, fut.result(), top_k=top_k,
+                mem_budget=mem_budget,
+            )
+        except RuntimeError as exc:  # gather/rerank failure: emit contains it
+            out = exc
+        emit(out, start, end)
+
     inflight: deque = deque()
     with torch.inference_mode():
-        for start in iterator:
-            end, tile_dev = make_tile(start)
-            try:
-                out = search_core(
-                    loaded.dev,
-                    tile_dev,
-                    None,
-                    ispec=ispec,
-                    top_k=top_k,
-                    n_ivf_probe=n_ivf_probe,
-                    n_full_scores=n_full_scores,
-                    mem_budget=mem_budget,
-                    cand_cap=cand_cap,
-                    approx_mode=approx_mode,
-                    with_stats=True,
-                    use_rerank_kernel=use_kernel,
-                    slot_budget=slot_budget,
-                    use_estimate_kernel=est_kernel,
-                    pool_divisor=pool_divisor,
-                    rank_admit=rank_admit,
-                )
-            except NotImplementedError:
-                raise
-            except RuntimeError as exc:  # e.g. out of device memory
-                out = exc
-            inflight.append((out, start, end))
-            if len(inflight) >= 2:
+        if loaded.low_memory:
+            # Two tiles in flight: tile i + 1's candidate cascade is enqueued
+            # before tile i's host gather (on the worker thread) is awaited,
+            # so neither the host gather nor the device cascade waits on the
+            # other.
+            with ThreadPoolExecutor(max_workers=1) as pool:
+                for start in iterator:
+                    end, tile_dev = make_tile(start)
+                    try:
+                        p2, stats = _lm_candidates(
+                            loaded,
+                            tile_dev,
+                            n_ivf_probe=n_ivf_probe,
+                            n_full_scores=n_full_scores,
+                            cand_cap=cand_cap,
+                            approx_mode=approx_mode,
+                            slot_budget=slot_budget,
+                            use_estimate_kernel=est_kernel,
+                            pool_divisor=pool_divisor,
+                            rank_admit=rank_admit,
+                        )
+                        if lm_q4:
+                            p2 = q4_prefilter_core(
+                                loaded.dev,
+                                p2,
+                                tile_dev,
+                                sentinel_pid=ispec.sentinel_pid,
+                                pool=rescue_pool(top_k),
+                                mem_budget=mem_budget,
+                                use_kernel=on_gpu,
+                            )
+                        fut = pool.submit(gather_stage, *_to_host_async(p2))
+                        job = (tile_dev, p2, stats, fut)
+                    except NotImplementedError:
+                        raise
+                    except RuntimeError as exc:  # e.g. out of device memory
+                        job = exc
+                    inflight.append((start, end, job))
+                    if len(inflight) >= 2:
+                        finish_stage(*inflight.popleft())
+                while inflight:
+                    finish_stage(*inflight.popleft())
+        else:
+            # Dispatch ahead of conversion: the device->host copy in emit()
+            # waits for the device, so tile i converts only after tile i+1
+            # is enqueued.
+            for start in iterator:
+                end, tile_dev = make_tile(start)
+                try:
+                    out = search_core(
+                        loaded.dev,
+                        tile_dev,
+                        None,
+                        ispec=ispec,
+                        top_k=top_k,
+                        n_ivf_probe=n_ivf_probe,
+                        n_full_scores=n_full_scores,
+                        mem_budget=mem_budget,
+                        cand_cap=cand_cap,
+                        approx_mode=approx_mode,
+                        with_stats=True,
+                        use_rerank_kernel=use_kernel,
+                        slot_budget=slot_budget,
+                        use_estimate_kernel=est_kernel,
+                        pool_divisor=pool_divisor,
+                        rank_admit=rank_admit,
+                    )
+                except NotImplementedError:
+                    raise
+                except RuntimeError as exc:  # e.g. out of device memory
+                    out = exc
+                inflight.append((out, start, end))
+                if len(inflight) >= 2:
+                    emit(*inflight.popleft())
+            while inflight:
                 emit(*inflight.popleft())
-        while inflight:
-            emit(*inflight.popleft())
 
     live = {t.ident for t in threading.enumerate()}
     for ident in [k for k in _LAST_STATS if k not in live]:

@@ -3,7 +3,11 @@
 Marked ``cuda``: they build the kernels with nvcc and need a CUDA device, so
 they skip on a machine without one. Run them on the card with
 
-    python -m pytest tests/test_torch_cuda.py -m cuda
+    python -m pytest --noconftest tests/test_torch_cuda.py -m cuda
+
+(``--noconftest``: ``tests/conftest.py`` imports jax, which the GPU machine
+need not have.) The three rerank kernels hold at rtol = atol = 1e-3
+(tensor-core accumulation order) with identical -inf patterns.
 """
 
 from __future__ import annotations
@@ -15,9 +19,15 @@ from fast_plaid_tpu_torch.ops.estimate_kernel import (
     segmented_estimate,
     segmented_estimate_plain,
 )
+from fast_plaid_tpu_torch.ops.rerank_dedup import (
+    maxsim_gather_scores_dedup,
+    maxsim_gather_scores_dedup_plain,
+)
 from fast_plaid_tpu_torch.ops.rerank_kernel import (
     maxsim_gather_scores,
     maxsim_gather_scores_plain,
+    maxsim_q4_gather_scores,
+    maxsim_q4_gather_scores_plain,
 )
 
 pytestmark = pytest.mark.cuda
@@ -66,6 +76,66 @@ def test_rerank_kernel_matches_plain(cuda):
     assert torch.isneginf(got[0, :2]).all() and torch.isneginf(got[1, :2]).all()
 
 
+def _close(got, want):
+    assert torch.equal(torch.isneginf(got), torch.isneginf(want))
+    fin = torch.isfinite(want)
+    torch.testing.assert_close(got[fin], want[fin], rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("caph,q", [(80, 32), (24, 32), (8, 24), (5, 16)])
+def test_q4_kernel_matches_plain(cuda, caph, q):
+    g = torch.Generator(device=cuda).manual_seed(caph * q)
+    npd, d, b, r = 200, 128, 4, 150
+    emb_q4 = torch.randint(0, 256, (npd * caph, d), generator=g, device=cuda).to(torch.uint8)
+    scale = torch.rand((npd,), generator=g, device=cuda)
+    pids = torch.randint(0, npd, (b, r), generator=g, device=cuda, dtype=torch.int32)
+    lens = torch.randint(1, 2 * caph + 1, (b, r), generator=g, device=cuda, dtype=torch.int32)
+    lens[0, :6] = torch.tensor([0, 0, 1, caph, caph + 1, 2 * caph + 7], device=cuda)
+    pids[1, :4] = torch.tensor([-7, npd, npd + 1000, npd - 1], dtype=torch.int32, device=cuda)
+    lens[2] = torch.randint(1, caph + 1, (r,), generator=g, device=cuda, dtype=torch.int32)
+    queries = torch.randn((b, q, d), generator=g, device=cuda)
+    before = maxsim_q4_gather_scores.launches
+    got = maxsim_q4_gather_scores(emb_q4, scale, pids, lens, queries)
+    assert maxsim_q4_gather_scores.launches == before + 1
+    want = maxsim_q4_gather_scores_plain(emb_q4, scale, pids, lens, queries)
+    _close(got, want)
+    assert torch.isneginf(got[0, :2]).all() and torch.isfinite(got[0, 2:]).all()
+
+
+def _dedup_pools(cuda, g, n_docs, b, r):
+    """Main-path-like overlap, one pid for every slot, runs of exactly G and
+    G + 1, and all-sentinel rows."""
+    rand = torch.randint(0, n_docs, (b, r), generator=g, device=cuda, dtype=torch.int32)
+    one = torch.full((b, r), 7, dtype=torch.int32, device=cuda)
+    run_g = torch.arange(r, dtype=torch.int32, device=cuda).repeat(8, 1)
+    run_g1 = torch.arange(r, dtype=torch.int32, device=cuda).repeat(9, 1)
+    sent = torch.full((b, r), n_docs, dtype=torch.int32, device=cuda)
+    mixed = rand.clone()
+    mixed[:, ::5] = n_docs
+    return {"random": rand, "one_pid": one, "run_g": run_g, "run_g1": run_g1,
+            "all_sentinel": sent, "mixed_sentinel": mixed}
+
+
+@pytest.mark.parametrize("doc_cap,q", [(160, 32), (48, 16)])
+def test_dedup_kernel_matches_plain(cuda, doc_cap, q):
+    g = torch.Generator(device=cuda).manual_seed(doc_cap)
+    n_docs, d, b, r = 300, 128, 12, 200
+    emb = torch.randn((n_docs + 1, doc_cap, d), generator=g, device=cuda).to(torch.bfloat16)
+    doc_lengths = torch.randint(1, doc_cap + 1, (n_docs + 1,), generator=g, device=cuda,
+                                dtype=torch.int32)
+    doc_lengths[-1] = 0
+    for name, pids in _dedup_pools(cuda, g, n_docs, b, r).items():
+        lens = doc_lengths[pids.long()]
+        queries = torch.randn((pids.shape[0], q, d), generator=g, device=cuda)
+        before = maxsim_gather_scores_dedup.launches
+        got = maxsim_gather_scores_dedup(emb, pids, lens, queries)
+        assert maxsim_gather_scores_dedup.launches == before + 1, name
+        _close(got, maxsim_gather_scores_dedup_plain(emb, pids, lens, queries))
+        _close(got, maxsim_gather_scores_plain(emb, pids, lens, queries))
+        if name == "all_sentinel":
+            assert torch.isneginf(got).all()
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     emb = torch.zeros((8, 24, 128), dtype=torch.bfloat16, device=cuda)  # doc_cap % 16
     ids = torch.zeros((1, 4), dtype=torch.int32, device=cuda)
@@ -73,3 +143,10 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         maxsim_gather_scores(emb, ids, ids, torch.zeros((1, 8, 128), device=cuda))
     with pytest.raises(TypeError):
         segmented_estimate(ids.long(), ids.long(), torch.zeros((1, 2, 8), device=cuda))
+    q4 = torch.zeros((8 * 4, 40), dtype=torch.uint8, device=cuda)  # D % 16
+    with pytest.raises(ValueError):
+        maxsim_q4_gather_scores(q4, torch.ones(8, device=cuda), ids, ids,
+                                torch.zeros((1, 8, 40), device=cuda))
+    emb64 = torch.zeros((8, 16, 64), dtype=torch.bfloat16, device=cuda)  # D 64
+    with pytest.raises(ValueError):
+        maxsim_gather_scores_dedup(emb64, ids, ids, torch.zeros((1, 16, 64), device=cuda))

@@ -1,0 +1,201 @@
+"""Deduplicated rerank parity: the port's ``ops/rerank_dedup.py`` against the
+JAX package's on the same seeded pools.
+
+* ``group_pool``: identical entry tables, ``inv`` and entry count.
+* ``dedup_viable``: the same decision on a grid of (Np, B, R, Q, D), the
+  chip_smoke shape included, and under each ``FASTPLAID_RERANK_DEDUP``.
+* ``maxsim_gather_scores_dedup`` (its plain version on the CPU) against the
+  JAX one in interpret mode and against ``maxsim_gather_scores_plain``, at
+  rtol = atol = 1e-3 (float32 sums in another order), with identical -inf
+  patterns: heavy overlap, Zipf skew, runs longer than G, all-sentinel rows.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import itertools
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from fast_plaid_tpu import testing
+from fast_plaid_tpu.index.layout import build_emb_cache
+from fast_plaid_tpu.ops import rerank_dedup as jdedup
+from fast_plaid_tpu_torch.index import layout as tlayout
+from fast_plaid_tpu_torch.ops import rerank_dedup as tdedup
+from fast_plaid_tpu_torch.ops.rerank_kernel import maxsim_gather_scores_plain
+
+torch.set_num_threads(2)
+
+TOL = 1e-3
+
+
+def _pool(rng, b, r, n_docs, sentinel_frac=0.1):
+    pids = rng.integers(0, n_docs, (b, r)).astype(np.int32)
+    pids[rng.random((b, r)) < sentinel_frac] = n_docs  # zero-length sentinel row
+    return pids
+
+
+def _corpus(rng, n_docs, doc_cap, d):
+    doc_lengths = np.concatenate([rng.integers(1, doc_cap + 1, n_docs), [0]]).astype(
+        np.int32
+    )
+    emb = rng.standard_normal((n_docs + 1, doc_cap, d)).astype(np.float32)
+    emb16 = jnp.asarray(emb, dtype=jnp.bfloat16)
+    emb_t = torch.from_numpy(np.asarray(emb16, np.float32)).to(torch.bfloat16)
+    return doc_lengths, emb16, emb_t
+
+
+@pytest.mark.parametrize(
+    "b,r,n_docs,g",
+    [(8, 64, 40, 4), (4, 50, 3, 8), (6, 16, 200, 8), (2, 40, 1, 8)],
+    ids=["overlap", "runs_longer_than_g", "sparse", "one_pid"],
+)
+def test_group_pool_matches_jax(b, r, n_docs, g):
+    rng = np.random.default_rng(b * r + n_docs)
+    pids = _pool(rng, b, r, n_docs)
+    doc_lengths = np.concatenate([rng.integers(1, 7, n_docs), [0]]).astype(np.int32)
+    lens = doc_lengths[pids]
+    n = b * r
+    e_cap = min(n, n // g + n_docs + 1)
+    want = [np.asarray(x) for x in jdedup.group_pool(jnp.asarray(pids), jnp.asarray(lens), g, e_cap)]
+    got = [x.numpy() for x in tdedup.group_pool(torch.from_numpy(pids), torch.from_numpy(lens), g, e_cap)]
+    for name, w, t in zip(("entry_pid", "entry_len", "entry_qidx", "inv", "n_entries"), want, got):
+        assert t.dtype == np.int32, name
+        np.testing.assert_array_equal(t, w, err_msg=name)
+    # Every slot maps to an entry of its pid, with its query at its slot.
+    epid, _, eq, inv, n_entries = got
+    e, s = inv // g, inv % g
+    assert (e < int(n_entries)).all()
+    np.testing.assert_array_equal(epid[e], pids)
+    np.testing.assert_array_equal(eq[e, s], np.repeat(np.arange(b), r).reshape(b, r))
+    _, counts = np.unique(pids.reshape(-1), return_counts=True)
+    assert int(n_entries) == int(np.sum(-(-counts // g)))
+
+
+_GRID = list(
+    itertools.product(
+        (1_000, 57_640, 123_000, 523_000),  # Np
+        (1, 8, 256, 1024),  # B
+        (1, 64, 2048),  # R
+        (8, 16, 17, 32),  # Q
+        (64, 128, 256),  # D
+    )
+)
+
+
+@pytest.mark.parametrize("env", [None, "0", "1", "auto"])
+def test_dedup_viable_matches_jax(env, monkeypatch):
+    if env is None:
+        monkeypatch.delenv("FASTPLAID_RERANK_DEDUP", raising=False)
+    else:
+        monkeypatch.setenv("FASTPLAID_RERANK_DEDUP", env)
+    decisions = [tdedup.dedup_viable(*args) for args in _GRID]
+    assert decisions == [jdedup.dedup_viable(*args) for args in _GRID]
+    if env in (None, "auto"):
+        assert tdedup.dedup_viable(57_640, 256, 2048, 32, 128)  # the chip_smoke tile
+        assert not tdedup.dedup_viable(523_000, 256, 2048, 32, 128)
+        assert any(decisions) and not all(decisions)
+
+
+def _scores(emb16, emb_t, pids, lens, queries, g, chunk):
+    want = np.asarray(
+        jdedup.maxsim_gather_scores_dedup(
+            emb16, jnp.asarray(pids), jnp.asarray(lens), jnp.asarray(queries),
+            g=g, e_tile=8, chunk=chunk, interpret=True,
+        )
+    )
+    args = (emb_t, torch.from_numpy(pids), torch.from_numpy(lens), torch.from_numpy(queries))
+    before = tdedup.maxsim_gather_scores_dedup.launches
+    got = tdedup.maxsim_gather_scores_dedup(*args, g=g).numpy()
+    assert tdedup.maxsim_gather_scores_dedup.launches == before  # CPU: plain version
+    per_query = maxsim_gather_scores_plain(*args).numpy()
+    for ref in (want, per_query):
+        assert np.array_equal(np.isneginf(got), np.isneginf(ref))
+        fin = np.isfinite(ref)
+        np.testing.assert_allclose(got[fin], ref[fin], rtol=TOL, atol=TOL)
+    return got
+
+
+def test_dedup_matches_jax_and_per_query():
+    rng = np.random.default_rng(1)
+    b, r, n_docs, doc_cap, d, q = 16, 64, 48, 12, 128, 16
+    doc_lengths, emb16, emb_t = _corpus(rng, n_docs, doc_cap, d)
+    pids = _pool(rng, b, r, n_docs)
+    queries = rng.standard_normal((b, q, d)).astype(np.float32)
+    got = _scores(emb16, emb_t, pids, doc_lengths[pids], queries, g=4, chunk=64)
+    assert np.isfinite(got).sum() > 0.8 * got.size
+
+
+@pytest.mark.parametrize("seed", [3, 4])
+def test_dedup_heavy_overlap_and_skew(seed):
+    """Zipf-skewed pools: hub documents requested by most queries, runs of
+    many times G."""
+    rng = np.random.default_rng(seed)
+    b, r, n_docs, doc_cap, d, q = 8, 128, 24, 10, 128, 16
+    doc_lengths, emb16, emb_t = _corpus(rng, n_docs, doc_cap, d)
+    pids = np.clip(rng.zipf(1.5, (b, r)) - 1, 0, n_docs - 1).astype(np.int32)
+    queries = rng.standard_normal((b, q, d)).astype(np.float32)
+    _scores(emb16, emb_t, pids, doc_lengths[pids], queries, g=8, chunk=64)
+
+
+@pytest.mark.parametrize("run", [8, 9], ids=["run_g", "run_g_plus_1"])
+def test_dedup_runs_of_g_and_g_plus_one(run):
+    """Every document requested by exactly G or G + 1 queries."""
+    rng = np.random.default_rng(run)
+    b, n_docs, doc_cap, d, q = run, 12, 16, 128, 16
+    doc_lengths, emb16, emb_t = _corpus(rng, n_docs, doc_cap, d)
+    pids = np.tile(np.arange(n_docs, dtype=np.int32), (b, 1))
+    queries = rng.standard_normal((b, q, d)).astype(np.float32)
+    _scores(emb16, emb_t, pids, doc_lengths[pids], queries, g=8, chunk=32)
+
+
+def test_dedup_all_sentinel_rows_are_neg_inf():
+    rng = np.random.default_rng(2)
+    b, r, n_docs, doc_cap, d, q = 8, 32, 16, 8, 128, 16
+    _, emb16, emb_t = _corpus(rng, n_docs, doc_cap, d)
+    pids = np.full((b, r), n_docs, np.int32)
+    lens = np.zeros((b, r), np.int32)
+    queries = rng.standard_normal((b, q, d)).astype(np.float32)
+    got = _scores(emb16, emb_t, pids, lens, queries, g=4, chunk=32)
+    assert np.isneginf(got).all()
+
+
+def test_stage6_takes_the_gate(monkeypatch):
+    """The engine's stage 6 calls the dedup wrapper exactly where
+    ``dedup_viable`` holds (forced and disabled here by the override)."""
+    from fast_plaid_tpu_torch.search import engine as tengine
+
+    calls = []
+    monkeypatch.setattr(
+        tengine, "maxsim_gather_scores_dedup",
+        lambda *a, **k: calls.append("dedup") or tdedup.maxsim_gather_scores_dedup(*a, **k),
+    )
+    monkeypatch.setattr(
+        tengine, "maxsim_gather_scores",
+        lambda *a, **k: calls.append("per_query") or maxsim_gather_scores_plain(*a, **k),
+    )
+    rng = np.random.default_rng(0)
+    docs = testing.random_documents(rng, 60, 12, 128, variable=True)
+    dev_j, spec_j = testing.build_memory_index(docs, nbits=4, seed=0, k=32)
+    dev_j = build_emb_cache(dev_j, spec_j)
+    arrays = {
+        f: np.asarray(getattr(dev_j, f))
+        for f in dev_j._fields
+        if getattr(dev_j, f) is not None and f != "buckets"
+    }
+    dev_t, spec_t = tlayout.device_index_from_arrays(
+        arrays, dataclasses.asdict(spec_j), "cpu"
+    )
+    q = torch.from_numpy(testing.random_queries(rng, 4, 16, 128).astype(np.float32))
+    kw = dict(ispec=spec_t, top_k=5, n_ivf_probe=4, n_full_scores=64, use_rerank_kernel=True)
+    results = {}
+    for env in ("1", "0"):
+        monkeypatch.setenv("FASTPLAID_RERANK_DEDUP", env)
+        calls.clear()
+        results[env] = tengine.search_impl(dev_t, q, None, **kw)
+        assert calls == (["dedup"] if env == "1" else ["per_query"])
+    np.testing.assert_allclose(results["1"][1].numpy(), results["0"][1].numpy(), rtol=TOL, atol=TOL)
