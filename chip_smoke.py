@@ -15,9 +15,12 @@ Phases, each of which raises (non-zero exit) on failure:
    caph 24, lens <= caph) and the dedup rerank (B 256, R 2048 pools of the
    main path's overlap; one pid for every slot, runs of exactly G and G + 1,
    all sentinel), the dedup kernel against the per-query kernel as well.
+   The three rerank kernels also at the direct-subset pool's ragged widths
+   R 8, 24, 256 and 3,608 (sorted pids, sentinel tail).
 3. The device-resident path: ``FastPlaid(index, device="cuda",
-   low_memory=False).create(docs)`` over a synthetic corpus (unit-norm
-   tokens, lengths uniform in [80, 160], d=128, seeded), then ``.search`` of
+   low_memory=False).create(docs, metadata=...)`` over a synthetic corpus
+   (unit-norm tokens, lengths uniform in [80, 160], d=128, seeded; metadata
+   ``cat``, ``day``, ``title`` for every document), then ``.search`` of
    random queries plus 64 planted probes (verbatim 32-token prefixes of
    documents). Stage 6 takes the dedup kernel where ``dedup_viable`` holds
    (it does at this shape); the estimate and dedup launch counters must
@@ -38,19 +41,35 @@ Phases, each of which raises (non-zero exit) on failure:
    only past about 1.4M documents on an 80 GB card, beyond this run's
    time, so the budget is forced. Planted hit@1 must be 1.0 with the q4
    kernel launched.
-6. Print the kernels' JSON record, then the contract line
+6. The mutable index, on the same index: subset searches (``where("cat =
+   3")``, the direct pool on the resident instance; ``where("cat < 8")``,
+   the density-scaled cascade; per-query subsets of 256 ids) on the resident
+   instance and the default constructor, each checked for membership,
+   planted hit@1 over the probes inside the subset, kernel path = plain path
+   on one tile and the kernels' counters; ``search_token_scores`` and
+   ``get_embeddings`` on both; then, on the default constructor, ``update``
+   with 50 documents (buffered) and 2,000 more (the buffer trips: new
+   centroids), and ``delete`` of 1,000 documents, each followed by planted
+   probes at the documents' new ids and by the metadata's ``where``; last,
+   the index reopened resident.
+7. Print the kernels' JSON record, then the contract line
    ``{"ok": true, "device": {...}}`` as the last line.
+
+A "search failed" RuntimeWarning (a tile whose device work raised, a failed
+kernel launch included) is an error for the whole run.
 """
 
 from __future__ import annotations
 
 import argparse
+import datetime
 import json
 import os
 import shutil
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 
@@ -60,6 +79,7 @@ N_PROBE, N_FULL = 8, 4096
 EST_ATOL = 1e-4
 RERANK_TOL = 1e-3  # rtol and atol: tensor-core accumulation order
 TIE_TOL = 1e-3
+RAGGED_R = (8, 24, 256, 3608)
 
 
 def log(msg: str) -> None:
@@ -292,6 +312,15 @@ def phase_kernels(dev: "torch.device", n_docs: int) -> None:
     doc_lengths = torch.randint(80, 161, (npd,), generator=g, device=dev, dtype=torch.int32)
     doc_lengths[n_docs:] = 0
     check_dedup(emb, pids_d, doc_lengths[pids_d.long()], qs, "main_shape_random")
+    # The direct-subset pool's widths: sorted pids, sentinel padding at the
+    # tail (R any multiple of 8; 3,608 is the shared where("cat = 3") pool).
+    ragged = {}
+    for r_w in RAGGED_R:
+        p = sorted_pids(b, r_w, n_docs)
+        p[:, -min(r_w, 5):] = n_docs
+        ragged[r_w] = (p.contiguous(), doc_lengths[p.long()])
+        check_rerank(emb, *ragged[r_w], qs, f"ragged_R{r_w}")
+        check_dedup(emb, *ragged[r_w], qs, f"ragged_R{r_w}")
     del emb
     # Edge cases: empty rows, sentinel and out-of-range pids, ragged R and Q.
     emb_s = torch.randn((500, 48, DIM), generator=g, device=dev).to(torch.bfloat16)
@@ -312,6 +341,8 @@ def phase_kernels(dev: "torch.device", n_docs: int) -> None:
     emb_q4 = torch.randint(0, 256, (npd * caph, DIM), generator=g, device=dev).to(torch.uint8)
     scale = torch.rand((npd,), generator=g, device=dev) / 7
     check_q4(emb_q4, scale, pids, lens, qs, "main_shape_random", timing=True)
+    for r_w in RAGGED_R:
+        check_q4(emb_q4, scale, *ragged[r_w], qs, f"ragged_R{r_w}")
     del emb_q4
     # Edges: lens 0, sentinel and out-of-range pids, caph 24, lens <= caph.
     caph_s = 24
@@ -508,6 +539,51 @@ class Recorder:
         setattr(self.module, self.name, self.fn)
 
 
+class Stopwatch:
+    """Add up the seconds spent in module-level functions between
+    ``start()`` and ``stop()``; ``take()`` returns and clears the sums.
+    Calls nest: an outer function's seconds include its inner ones'."""
+
+    def __init__(self, targets):  # [(module, function name, label)]
+        self.targets = targets
+        self.seconds = {label: 0.0 for _, _, label in targets}
+        self.saved: list = []
+
+    def start(self) -> "Stopwatch":
+        for module, name, label in self.targets:
+            fn = getattr(module, name)
+            self.saved.append((module, name, fn))
+
+            def timed(*args, _fn=fn, _label=label, **kwargs):
+                t0 = time.perf_counter()
+                try:
+                    return _fn(*args, **kwargs)
+                finally:
+                    self.seconds[_label] += time.perf_counter() - t0
+
+            setattr(module, name, timed)
+        return self
+
+    def stop(self) -> None:
+        for module, name, fn in reversed(self.saved):
+            setattr(module, name, fn)
+        self.saved.clear()
+
+    def take(self) -> dict:
+        out = {k: round(v, 3) for k, v in self.seconds.items() if v}
+        self.seconds = dict.fromkeys(self.seconds, 0.0)
+        return out
+
+
+def meta_row(i: int) -> dict:
+    """Metadata of the document inserted i-th."""
+    return {
+        "cat": i % 16,
+        "day": datetime.date(2024, 1, 1) + datetime.timedelta(days=i % 365),
+        "title": f"doc{i}",
+    }
+
+
 def phase_resident(dev, index_dir, docs, queries, n_queries, probe_pids, counters):
     """Phase 3 (dedup stage 6) and 3b (per-query stage 6)."""
     import torch
@@ -517,12 +593,13 @@ def phase_resident(dev, index_dir, docs, queries, n_queries, probe_pids, counter
 
     fp = FastPlaid(index_dir, device=str(dev), low_memory=False)
     t0 = time.perf_counter()
-    fp.create(docs, show_progress=False)
+    fp.create(docs, metadata=[meta_row(i) for i in range(len(docs))], show_progress=False)
     torch.cuda.synchronize()
     create_s = time.perf_counter() - t0
     loaded = fp.indices[str(dev)]
     ispec = loaded.ispec
-    log(f"# create: {create_s:.2f} s, {ispec}")
+    log(f"# create (metadata database of {len(docs)} rows included): {create_s:.2f} s, "
+        f"{ispec}")
     if loaded.dev.emb_cache is None or loaded.low_memory:
         raise AssertionError("the bf16 corpus cache is not resident")
     np_rows = loaded.dev.emb_cache.shape[0]
@@ -726,6 +803,375 @@ def phase_q4_tier(dev, index_dir, ispec, queries, n_queries, probe_pids, counter
     return res
 
 
+def timed_reloads(fp) -> list:
+    """Record the seconds of every reload of ``fp`` from now on."""
+    import torch
+
+    times: list = []
+    real = fp._reload
+
+    def reload():
+        t0 = time.perf_counter()
+        out = real()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        return out
+
+    fp._reload = reload
+    return times
+
+
+def subset_search(fp, label, queries, subset, allowed, n_queries, probe_pids, counters,
+                  need) -> dict:
+    """One timed ``FastPlaid.search(subset=...)`` of every query: membership,
+    planted hit@1 over the probes inside their subset, planted documents
+    outside it never returned, the kernels' counters. Also times the host's
+    share of the subset: ``normalize_subset`` and ``_pad_subsets`` of every
+    tile, as the search runs them."""
+    import torch
+
+    from fast_plaid_tpu_torch.search import searcher
+
+    n_docs = next(iter(fp.indices.values())).ispec.n_docs
+    t0 = time.perf_counter()
+    rows = searcher.normalize_subset(subset, len(queries))
+    for start in range(0, len(queries), 256):
+        searcher._pad_subsets(rows, n_docs, slice(start, start + 256))
+    prep_s = time.perf_counter() - t0
+    kw = dict(top_k=TOP_K, n_full_scores=N_FULL, n_ivf_probe=N_PROBE, show_progress=False)
+    warm = subset if isinstance(subset[0], int) else subset[:256]
+    fp.search(queries[:256], subset=warm, **kw)
+    torch.cuda.synchronize()
+    counters.zero()
+    t0 = time.perf_counter()
+    results = fp.search(queries, subset=subset, **kw)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = counters.read()
+    if len(results) != len(queries):
+        raise AssertionError(f"{label}: {len(results)} result lists for {len(queries)} queries")
+    for qi, row in enumerate(results):
+        outside = {p for p, _ in row} - allowed(qi)
+        if outside:
+            raise AssertionError(f"{label}: query {qi} returned ids outside its subset: "
+                                 f"{sorted(outside)[:5]}")
+    inside = [i for i, p in enumerate(probe_pids) if int(p) in allowed(n_queries + i)]
+    hits = [bool(results[n_queries + i]) and results[n_queries + i][0][0] == int(probe_pids[i])
+            for i in inside]
+    hit1 = float(np.mean(hits)) if hits else float("nan")
+    for i, p in enumerate(probe_pids):
+        if i not in inside and any(pid == int(p) for pid, _ in results[n_queries + i]):
+            raise AssertionError(f"{label}: planted document {p} outside the subset came back")
+    empty = sum(1 for r in results if not r)
+    log(f"# [{label}] {len(queries)} queries in {dt:.3f} s = {len(queries) / dt:.1f} QPS "
+        f"(host subset preparation alone {prep_s:.3f} s); "
+        f"planted hit@1 {hit1:.4f} over {len(hits)} probes in their subset; "
+        f"{len(probe_pids) - len(inside)} probes outside it never returned; "
+        f"{empty} empty results; launches {launches}")
+    if not hits or hit1 != 1.0:
+        raise AssertionError(f"{label}: planted hit@1 {hit1} != 1.0")
+    for name in need:
+        if launches[name] < 1:
+            raise AssertionError(f"{label}: {name} was not launched during the search")
+    return {"qps": len(queries) / dt, "s": dt, "prep_s": prep_s, "hit1": hit1,
+            "launches": launches}
+
+
+def compare_tile(label, run) -> tuple[float, float]:
+    """``run(kernels)`` -> (ids, scores) of one tile: the kernel path must
+    equal the plain path up to ties. Returns the max score difference and
+    the kernel path's ms for the tile (CUDA events; host steps inside the
+    tile, such as low_memory's row gather, count)."""
+    import torch
+
+    with torch.inference_mode():
+        k_ids, k_sc = run(True)
+        p_ids, p_sc = run(False)
+        tile_ms = cuda_time_ms(lambda: run(True), 3)
+    ok, err = same_topk(k_ids.cpu().numpy(), k_sc.cpu().numpy(),
+                        p_ids.cpu().numpy(), p_sc.cpu().numpy())
+    if not ok:
+        raise AssertionError(f"{label}: kernel path and plain path differ beyond ties ({err})")
+    log(f"# [{label}] kernel path vs plain path on one tile: top-{TOP_K} equal up to ties, "
+        f"max score diff {err:.3e}; kernel path {tile_ms:.3f} ms a tile")
+    return err, tile_ms
+
+
+def phase_mutable(dev, index_dir, docs, queries, n_queries, probe_pids, counters, seed):
+    """Phase 6: subsets, token scores, get_embeddings, update and delete."""
+    import torch
+
+    from fast_plaid_tpu_torch import filtering
+    from fast_plaid_tpu_torch.index import appender, ivf, storage
+    from fast_plaid_tpu_torch.search import FastPlaid, engine, fast_plaid, searcher
+    from fast_plaid_tpu_torch.search import update as update_mod
+
+    n_docs = len(docs)
+    out: dict = {}
+    fp_res = FastPlaid(index_dir, device=str(dev), low_memory=False)
+    fp_lm = FastPlaid(index_dir, device=str(dev))
+    res_l, lm_l = fp_res.indices[str(dev)], fp_lm.indices[str(dev)]
+    if res_l.dev.emb_cache is None or not lm_l.low_memory or lm_l.dev.emb_q4 is None:
+        raise AssertionError("phase 6: the two instances are not resident bf16 / low_memory q4")
+
+    # ---- 1. subsets
+    cat3 = filtering.where(index_dir, "cat = ?", (3,))
+    cat_lt8 = filtering.where(index_dir, "cat < ?", (8,))
+    rng = np.random.default_rng(seed + 11)
+    per_query = []
+    for qi in range(len(queries)):
+        ids = set(rng.choice(n_docs, 300, replace=False).tolist())
+        if qi >= n_queries:
+            own = int(probe_pids[qi - n_queries])
+            ids.discard(own)
+            ids = [own, *sorted(ids)[:255]]
+        else:
+            ids = sorted(ids)[:256]
+        per_query.append(ids)
+    log(f"# [subsets] where('cat = 3'): {len(cat3)} ids; where('cat < 8'): {len(cat_lt8)} "
+        f"ids; per-query subsets of {len(per_query[0])} ids")
+    if len(cat3) != (n_docs + 12) // 16 or len(cat_lt8) != sum(1 for i in range(n_docs) if i % 16 < 8):
+        raise AssertionError("where() counts differ from the metadata written at create")
+    set3, set8 = set(cat3), set(cat_lt8)
+    sets_q = [set(x) for x in per_query]
+    forms = {
+        "cat = 3": (cat3, lambda qi: set3),
+        "cat < 8": (cat_lt8, lambda qi: set8),
+        "per-query 256": (per_query, lambda qi: sets_q[qi]),
+    }
+    r_pool = N_FULL // 2
+    nb = min(256, len(queries))  # one tile
+    kw = engine_kwargs(res_l, fp_res.mem_budget)
+    kw_lm = engine_kwargs(lm_l, fp_lm.mem_budget)
+    subset_res = {}
+    for name, (subset, allowed) in forms.items():
+        rows = [subset] * nb if isinstance(subset[0], int) else subset[:nb]
+        sub_tile = torch.from_numpy(searcher._pad_subsets(rows, n_docs, slice(0, nb))).to(dev)
+        direct = sub_tile.shape[1] <= 2 * r_pool
+        stage6 = ("maxsim_gather_scores_dedup"
+                  if engine.dedup_viable(res_l.dev.emb_cache.shape[0], nb,
+                                         sub_tile.shape[1] if direct else r_pool, Q_LEN, DIM)
+                  else "maxsim_gather_scores")
+        need = (stage6,) if direct else ("segmented_estimate", stage6)
+        label = f"subset {name}, resident ({'direct pool' if direct else 'cascade'})"
+        r = subset_search(fp_res, label, queries, subset, allowed, n_queries, probe_pids,
+                          counters, need)
+        tile = torch.from_numpy(queries[:nb].astype(np.float16)).to(dev)
+        r["diff"], r["tile_ms"] = compare_tile(label, lambda k: engine.search_impl(
+            res_l.dev, tile, sub_tile, use_estimate_kernel=k, use_rerank_kernel=k, **kw))
+        subset_res[("resident", name)] = r
+
+        label = f"subset {name}, low_memory (cascade)"
+        r = subset_search(fp_lm, label, queries, subset, allowed, n_queries, probe_pids,
+                          counters, ("segmented_estimate", "maxsim_q4_gather_scores"))
+
+        def lm_tile(k, tile=tile, sub_tile=sub_tile):
+            p2, stats = searcher._lm_candidates(
+                lm_l, tile, sub_tile, n_ivf_probe=N_PROBE, n_full_scores=N_FULL,
+                mem_budget=fp_lm.mem_budget, cand_cap=kw_lm["cand_cap"],
+                approx_mode=kw_lm["approx_mode"], slot_budget=kw_lm["slot_budget"],
+                use_estimate_kernel=k, rank_admit=kw_lm["rank_admit"])
+            p2 = engine.q4_prefilter_core(
+                lm_l.dev, p2, tile, sentinel_pid=lm_l.ispec.sentinel_pid,
+                pool=engine.rescue_pool(TOP_K), mem_budget=fp_lm.mem_budget, use_kernel=k)
+            rows_h = searcher.host_gather_rows(lm_l, p2.cpu().numpy(), pin=True)
+            return searcher._lm_finish(lm_l, tile, p2, stats, rows_h, top_k=TOP_K,
+                                       mem_budget=fp_lm.mem_budget)[:2]
+
+        r["diff"], r["tile_ms"] = compare_tile(label, lm_tile)
+        subset_res[("low_memory", name)] = r
+    out["subsets"] = subset_res
+
+    # The subset's probe mask at the largest subset, on one tile of up to 256 queries.
+    sub8 = torch.from_numpy(searcher._pad_subsets([cat_lt8] * nb, n_docs, slice(0, nb))).to(dev)
+    kp = res_l.dev.centroids.shape[0]
+    chunk = max(8, min(sub8.shape[1], fp_res.mem_budget // (24 * nb * res_l.ispec.doc_cap)))
+    with torch.inference_mode():
+        mask_ms = cuda_time_ms(lambda: engine._allowed_cells_mask(
+            res_l.dev, sub8, res_l.ispec, kp, chunk), 5)
+        tile = torch.from_numpy(queries[:nb].astype(np.float16)).to(dev)
+        tile_ms = cuda_time_ms(lambda: engine.search_impl(
+            res_l.dev, tile, sub8, use_estimate_kernel=True, use_rerank_kernel=True, **kw), 5)
+    scatters = nb * sub8.shape[1] * res_l.ispec.doc_cap
+    log(f"# [subsets] _allowed_cells_mask at S {sub8.shape[1]}, B {nb}, doc_cap "
+        f"{res_l.ispec.doc_cap} ({scatters / 1e9:.2f} G scatters, chunk {chunk}): "
+        f"{mask_ms:.3f} ms of a {tile_ms:.3f} ms resident tile with that subset")
+    out["mask_ms"], out["mask_tile_ms"] = mask_ms, tile_ms
+
+    # ---- 2. token scores of the planted probes, on both instances
+    probes = queries[n_queries:]
+    kw_api = dict(top_k=TOP_K, n_full_scores=N_FULL, n_ivf_probe=N_PROBE, show_progress=False)
+    for label, fp in (("resident", fp_res), ("low_memory", fp_lm)):
+        plain = fp.search(probes, **kw_api)
+        t0 = time.perf_counter()
+        tok = fp.search_token_scores(probes, **kw_api)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        worst = 0.0
+        for row_a, row_b in zip(plain, tok):
+            if [p for p, _ in row_a] != [p for p, _, _ in row_b]:
+                raise AssertionError(f"token scores [{label}]: ids differ from search()")
+            for (pid, sa), (_, sb, mat) in zip(row_a, row_b):
+                if sa != sb:
+                    raise AssertionError(f"token scores [{label}]: score {sb} != search()'s {sa}")
+                if mat.shape != (Q_LEN, len(docs[pid])):
+                    raise AssertionError(f"token scores [{label}]: matrix {mat.shape} for doc {pid}")
+                worst = max(worst, abs(float(mat.max(axis=1).sum()) - sb))
+        if worst > 1e-3:
+            raise AssertionError(f"token scores [{label}]: MaxSim of the matrix off by {worst}")
+        hit1 = float(np.mean([r[0][0] == int(p) for r, p in zip(tok, probe_pids)]))
+        if hit1 != 1.0:
+            raise AssertionError(f"token scores [{label}]: planted hit@1 {hit1}")
+        log(f"# [token scores, {label}] {len(probes)} probes in {dt:.3f} s: ids and scores = "
+            f"search()'s, matrices [{Q_LEN}, doc_len], sum of row maxima - score <= "
+            f"{worst:.2e}, planted hit@1 {hit1}")
+
+    # ---- 3. get_embeddings on both instances
+    ids = [0, n_docs - 1, *np.random.default_rng(seed + 12).choice(n_docs, 510).tolist()]
+    t0 = time.perf_counter()
+    e_res = fp_res.get_embeddings(ids)
+    t_res = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    e_lm = fp_lm.get_embeddings(ids)
+    t_lm = time.perf_counter() - t0
+    diff, cos = 0.0, []
+    for i, a, b in zip(ids, e_res, e_lm):
+        if a.shape != docs[i].shape or b.shape != docs[i].shape:
+            raise AssertionError(f"get_embeddings: doc {i} shapes {a.shape} {b.shape}")
+        diff = max(diff, float(np.abs(a - b).max()))
+        cos.append(np.sum(a * docs[i], axis=-1))
+    if diff > 1e-5:
+        raise AssertionError(f"get_embeddings: resident and low_memory differ by {diff}")
+    log(f"# [get_embeddings] {len(ids)} docs: resident {t_res:.3f} s, low_memory {t_lm:.3f} s, "
+        f"max |difference| {diff:.2e}, mean cosine with the original tokens "
+        f"{float(np.mean(np.concatenate(cos))):.4f}")
+    fp_res.close()
+    del fp_res, res_l
+    torch.cuda.empty_cache()
+
+    # ---- 4. update on the default constructor
+    reloads = timed_reloads(fp_lm)
+    sw = Stopwatch([
+        (update_mod, "update_metadata_db", "sqlite insert"),
+        (update_mod, "_min_dists_sq", "outlier scan"),
+        (update_mod, "compute_kmeans", "k-means"),
+        (update_mod, "update_index", "append"),
+        (appender, "compress_documents", "append: compress"),
+        (ivf, "splice_ivf", "append: ivf splice"),
+        (fast_plaid, "delete_from_index", "index delete"),
+        (filtering, "delete", "sqlite delete"),
+    ]).start()
+    new_docs, _ = planted_corpus(2050, seed + 1)
+    k0 = fp_lm.indices[str(dev)].ispec.n_partitions
+    where3 = len(filtering.where(index_dir, "cat = 3"))
+    t0 = time.perf_counter()
+    fp_lm.update(new_docs[:50], metadata=[meta_row(n_docs + i) for i in range(50)])
+    torch.cuda.synchronize()
+    out["update50_s"] = time.perf_counter() - t0
+    if not os.path.exists(os.path.join(index_dir, "buffer.npy")):
+        raise AssertionError("update of 50 documents: no buffer.npy")
+    probe_new = np.stack([d[:Q_LEN] for d in new_docs[:50]])
+    res = fp_lm.search(probe_new, **kw_api)
+    hit = float(np.mean([r[0][0] == n_docs + i for i, r in enumerate(res)]))
+    if hit != 1.0:
+        raise AssertionError(f"update of 50: planted hit@1 {hit} at the new ids")
+    out["update50_parts"] = sw.take()
+    log(f"# [update 50] {out['update50_s']:.2f} s (reload {reloads[-1]:.2f} s; seconds in "
+        f"{out['update50_parts']}); planted hit@1 {hit} at ids {n_docs}..{n_docs + 49}")
+    n_reload = len(reloads)
+    t0 = time.perf_counter()
+    fp_lm.update(new_docs[50:], metadata=[meta_row(n_docs + i) for i in range(50, 2050)])
+    torch.cuda.synchronize()
+    out["update2000_s"] = time.perf_counter() - t0
+    out["update2000_parts"] = sw.take()
+    lm_l = fp_lm.indices[str(dev)]
+    k1 = lm_l.ispec.n_partitions
+    if os.path.exists(os.path.join(index_dir, "buffer.npy")) or k1 <= k0:
+        raise AssertionError(f"update of 2,000: buffer not tripped (K {k0} -> {k1})")
+    if lm_l.ispec.n_docs != n_docs + 2050:
+        raise AssertionError(f"update: {lm_l.ispec.n_docs} documents")
+    pick = np.concatenate([np.arange(50), 50 + np.random.default_rng(seed + 13).choice(
+        2000, 206, replace=False)])
+    probe_new = np.stack([new_docs[i][:Q_LEN] for i in pick])
+    counters.zero()
+    res = fp_lm.search(probe_new, **kw_api)
+    launches = counters.read()
+    hit = float(np.mean([r[0][0] == n_docs + i for i, r in zip(pick, res)]))
+    if hit != 1.0 or launches["segmented_estimate"] < 1 or launches["maxsim_q4_gather_scores"] < 1:
+        raise AssertionError(f"update of 2,000: planted hit@1 {hit}, launches {launches}")
+    grown = len(filtering.where(index_dir, "cat = 3"))
+    want3 = where3 + sum(1 for i in range(2050) if (n_docs + i) % 16 == 3)
+    if grown != want3:
+        raise AssertionError(f"where('cat = 3') after updates: {grown}, expected {want3}")
+    log(f"# [update 2000] {out['update2000_s']:.2f} s, the buffer tripped: reloads "
+        f"{', '.join(f'{t:.2f}' for t in reloads[n_reload:])} s; seconds in "
+        f"{out['update2000_parts']}; K {k0} -> {k1}; planted "
+        f"hit@1 {hit} over {len(pick)} new documents (the 50 re-appended among them); "
+        f"launches {launches}; where('cat = 3') {where3} -> {grown}")
+    out["K"] = (k0, k1)
+
+    # ---- 5. delete every 57th document
+    total = n_docs + 2050
+    deleted = list(range(0, 57 * min(1000, total // 57), 57))
+    gone = set(deleted)
+    kept = [i for i in range(total) if i not in gone]
+    new_id = {old: new for new, old in enumerate(kept)}
+    t0 = time.perf_counter()
+    fp_lm.delete(deleted)
+    torch.cuda.synchronize()
+    out["delete_s"] = time.perf_counter() - t0
+    out["delete_parts"] = sw.take()
+    sw.stop()
+    lm_l = fp_lm.indices[str(dev)]
+    left = total - len(deleted)
+    if lm_l.ispec.n_docs != left or storage.load_metadata(index_dir)["num_documents"] != left:
+        raise AssertionError(f"delete: {lm_l.ispec.n_docs} documents, expected {left}")
+
+    def doc(old):
+        return docs[old] if old < n_docs else new_docs[old - n_docs]
+
+    gone_probe = deleted[::16]
+    survivors = [o for o in [int(p) for p in probe_pids] + [n_docs + int(i) for i in pick[:32]]
+                 if o not in gone]
+    res = fp_lm.search(np.stack([doc(o)[:Q_LEN] for o in gone_probe + survivors]), **kw_api)
+    back = {old: new for new, old in enumerate(kept)}
+    inverse = dict(enumerate(kept))
+    for row in res:
+        if any(inverse[p] in gone for p, _ in row):
+            raise AssertionError("delete: a deleted document came back")
+    hit = float(np.mean([r[0][0] == back[o] for r, o in zip(res[len(gone_probe):], survivors)]))
+    if hit != 1.0:
+        raise AssertionError(f"delete: planted hit@1 {hit} at the shifted ids")
+    want = [new_id[o] for o in kept if o % 16 == 3]
+    if filtering.where(index_dir, "cat = 3") != want:
+        raise AssertionError("delete: where('cat = 3') not re-sequenced")
+    log(f"# [delete {len(deleted)}] {out['delete_s']:.2f} s (reload {reloads[-1]:.2f} s; "
+        f"seconds in {out['delete_parts']}); "
+        f"{lm_l.ispec.n_docs} documents; {len(gone_probe)} deleted documents' probes never "
+        f"return one; planted hit@1 {hit} over {len(survivors)} survivors at their shifted "
+        f"ids; where('cat = 3') re-sequenced ({len(want)} ids)")
+    fp_lm.close()
+    torch.cuda.empty_cache()
+
+    # ---- the mutated index reopened resident
+    t0 = time.perf_counter()
+    fp = FastPlaid(index_dir, device=str(dev), low_memory=False)
+    torch.cuda.synchronize()
+    out["reopen_s"] = time.perf_counter() - t0
+    counters.zero()
+    res = fp.search(np.stack([doc(o)[:Q_LEN] for o in survivors]), **kw_api)
+    launches = counters.read()
+    hit = float(np.mean([r[0][0] == back[o] for r, o in zip(res, survivors)]))
+    stage6 = launches["maxsim_gather_scores_dedup"] + launches["maxsim_gather_scores"]
+    if hit != 1.0 or stage6 < 1:
+        raise AssertionError(f"reopened resident: planted hit@1 {hit}, launches {launches}")
+    log(f"# [reopen resident] {out['reopen_s']:.2f} s; planted hit@1 {hit} over "
+        f"{len(survivors)} survivors; launches {launches}")
+    fp.close()
+    out["reloads"] = reloads
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n-docs", type=int, default=57_638)
@@ -737,6 +1183,9 @@ def main() -> None:
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device available; nothing to check")
+    # A tile whose device work raised (a failed kernel launch included) is
+    # contained by the searcher as empty results and a warning: fail instead.
+    warnings.filterwarnings("error", message="search failed", category=RuntimeWarning)
     sys.path.insert(0, ROOT)
     from fast_plaid_tpu_torch.ops import _build
 
@@ -779,13 +1228,15 @@ def main() -> None:
     try:
         main_res, k2_res = phase_resident(dev, index_dir, docs, queries, args.n_queries,
                                           probe_pids, counters)
-        del docs
         torch.cuda.empty_cache()
         lm_res = phase_low_memory(dev, index_dir, queries, args.n_queries, probe_pids,
                                   counters, main_res["ids"])
         torch.cuda.empty_cache()
         q4_res = phase_q4_tier(dev, index_dir, main_res["ispec"], queries,
                                args.n_queries, probe_pids, counters)
+        torch.cuda.empty_cache()
+        mut_res = phase_mutable(dev, index_dir, docs, queries, args.n_queries, probe_pids,
+                                counters, args.seed)
     finally:
         shutil.rmtree(index_dir, ignore_errors=True)
 
@@ -796,7 +1247,19 @@ def main() -> None:
         log(f"# summary [{label}]: {r['qps']:.1f} API QPS (top_k {TOP_K}, 256-query "
             f"tiles), tile p50/p99 {r['tile_ms'][0]:.3f}/{r['tile_ms'][1]:.3f} ms, "
             f"planted hit@1 {r['hit1']}, on {smi}")
-    log(f"# build {build_s:.2f} s, create {main_res['create_s']:.2f} s, low_memory "
+    for (path, name), r in mut_res["subsets"].items():
+        log(f"# summary [subset {name}, {path}]: {r['qps']:.1f} API QPS ({r['s']:.3f} s, host "
+            f"subset preparation {r['prep_s']:.3f} s), one tile {r['tile_ms']:.3f} ms, planted "
+            f"hit@1 {r['hit1']}, kernel = plain up to ties (max diff {r['diff']:.2e}), on {smi}")
+    log(f"# summary [mutable index]: update of 50 {mut_res['update50_s']:.2f} s, update of "
+        f"2,000 (buffer trip, K {mut_res['K'][0]} -> {mut_res['K'][1]}) "
+        f"{mut_res['update2000_s']:.2f} s, delete of 1,000 {mut_res['delete_s']:.2f} s, "
+        f"reloads {', '.join(f'{t:.2f}' for t in mut_res['reloads'])} s, resident reopen "
+        f"{mut_res['reopen_s']:.2f} s; subset mask {mut_res['mask_ms']:.3f} ms of a "
+        f"{mut_res['mask_tile_ms']:.3f} ms tile, on {smi}")
+    for op in ("update50", "update2000", "delete"):
+        log(f"# summary [{op} seconds by step]: {mut_res[op + '_parts']}")
+    log(f"# build {build_s:.2f} s, create {main_res['create_s']:.2f} s (metadata included), low_memory "
         f"open {lm_res['load_s']:.2f} s, q4 tier open {q4_res['load_s']:.2f} s, "
         f"host gather {lm_res['gather_ms']:.3f} ms/tile")
 

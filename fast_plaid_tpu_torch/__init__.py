@@ -16,6 +16,6 @@ This package imports torch and numpy, never jax.
 
 __version__ = "0.1.0"
 
-from fast_plaid_tpu_torch import search  # noqa: E402,F401
+from fast_plaid_tpu_torch import filtering, search  # noqa: E402,F401
 
-__all__ = ["search", "__version__"]
+__all__ = ["search", "filtering", "__version__"]

@@ -1,16 +1,17 @@
-"""Inverted-file construction (numpy, on the host).
+"""Inverted-file construction and splicing (numpy, on the host).
 
-A copy of the numpy path of ``fast_plaid_tpu/index/ivf.py::build_ivf``. The
-reference's optional C++ branch for large builds lives in the JAX package's
-``native`` module, which cannot be imported without jax; the numpy path
-below gives the identical (cell, pid)-sorted, per-cell-deduped lists.
+A copy of ``fast_plaid_tpu/index/ivf.py``: ``build_ivf`` (its numpy path)
+and ``splice_ivf``. The reference's optional C++ branch for large builds
+lives in the JAX package's ``native`` module, which cannot be imported
+without jax; the numpy path gives the identical (cell, pid)-sorted,
+per-cell-deduped lists.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["build_ivf"]
+__all__ = ["build_ivf", "splice_ivf"]
 
 
 def build_ivf(
@@ -38,3 +39,41 @@ def build_ivf(
     ivf = (uniq % n_docs).astype(np.int32)
     ivf_lengths = np.bincount(cells, minlength=n_partitions).astype(np.int64)
     return ivf, ivf_lengths
+
+
+def splice_ivf(
+    old_ivf: np.ndarray,
+    old_lengths: np.ndarray,
+    new_codes: np.ndarray,
+    new_doc_lengths: np.ndarray,
+    pid_base: int,
+) -> tuple[np.ndarray, np.ndarray]:
+    """Merge newly appended documents into an existing IVF without a rebuild.
+
+    New pids (``pid_base + local id``) are bucketed per partition and
+    concatenated after each cell's existing list: O(|old_ivf| + |new
+    tokens|), never touching old chunks' codes. Per-cell dedup holds because
+    new pids are disjoint from old ones.
+    """
+    k = int(old_lengths.shape[0])
+    new_ivf, new_lengths = build_ivf(new_codes, new_doc_lengths, k)
+    if new_ivf.size == 0:
+        return old_ivf, old_lengths
+    new_ivf = new_ivf + np.int32(pid_base)
+
+    old_lengths = np.asarray(old_lengths, np.int64)
+    out_lengths = old_lengths + new_lengths
+    out_offsets = np.concatenate([[0], np.cumsum(out_lengths)])
+    out = np.empty(old_ivf.size + new_ivf.size, np.int32)
+
+    cells_arange = np.arange(k, dtype=np.int64)
+    if old_ivf.size:
+        old_offsets = np.concatenate([[0], np.cumsum(old_lengths)])
+        old_cells = np.repeat(cells_arange, old_lengths)
+        rank = np.arange(old_ivf.size, dtype=np.int64) - old_offsets[old_cells]
+        out[out_offsets[old_cells] + rank] = old_ivf
+    new_offsets = np.concatenate([[0], np.cumsum(new_lengths)])
+    new_cells = np.repeat(cells_arange, new_lengths)
+    rank = np.arange(new_ivf.size, dtype=np.int64) - new_offsets[new_cells]
+    out[out_offsets[new_cells] + old_lengths[new_cells] + rank] = new_ivf
+    return out, out_lengths

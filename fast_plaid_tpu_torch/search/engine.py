@@ -18,13 +18,20 @@ Port of ``fast_plaid_tpu/search/engine.py``: the same static-shape cascade
 
 ``rerank_rows`` and ``q4_prefilter_core`` are low_memory's device steps
 (``search/searcher.py``): the q4 prefilter, then the codec-exact rerank of
-rows gathered on the host.
+rows gathered on the host; ``token_matrices`` gives its winners' token
+scores.
+
+A subset restricts the probe to the cells its documents occupy
+(``_allowed_cells_mask``) and keeps only member pids in the candidate
+windows; ``search_impl`` exact-reranks a subset of at most twice the rerank
+pool directly, skipping stages 1-5. ``reconstruct_core`` and
+``reconstruct_rows_core`` decompress documents for ``get_embeddings``.
 
 Ported here: the ``cells`` / ``cells_full`` estimators (the exhaustive and
-the budgeted chunked-window branches, with rank admission), the emb_cache,
-q4 and decompress rerank branches, and the numpy policy functions. The
-``tokens`` estimator, subsets, length buckets and token-score matrices raise
-NotImplementedError (ROADMAP.md §1).
+the budgeted chunked-window branches, with rank admission, with or without
+a subset), the emb_cache, q4 and decompress rerank branches, token-score
+matrices, reconstruction and the numpy policy functions. The ``tokens``
+estimator and length buckets raise NotImplementedError (ROADMAP.md §1).
 
 Tie order follows the JAX package on its CPU backend: cell orderings and the
 stage-5 and stage-7 top-k use stable sorts, so equal scores keep the lower
@@ -70,6 +77,10 @@ __all__ = [
     "q4_prefilter_core",
     "rerank_rows",
     "rerank_rows_core",
+    "token_matrices",
+    "token_matrices_core",
+    "reconstruct_core",
+    "reconstruct_rows_core",
     "candidate_capacity",
     "suggest_query_tile",
     "suggest_slot_budget",
@@ -134,6 +145,35 @@ def _doc_mask(dev: DeviceIndex, pids: torch.Tensor, doc_cap: int) -> torch.Tenso
     return torch.arange(doc_cap, device=pids.device) < lens[..., None]
 
 
+def _allowed_cells_mask(
+    dev: DeviceIndex, subset: torch.Tensor, ispec: IndexSpec, kp: int, chunk: int
+) -> torch.Tensor:
+    """[B, S] subset pids -> [B, kp] bool mask of the cells their tokens occupy.
+
+    With a subset only the centroids present in the subset documents' codes
+    may be probed. Each query row gets its own mask, even where all rows
+    hold one subset. Invalid tokens scatter into a spare column ``kp``
+    (torch has no drop mode), sliced off at the end.
+    """
+    b, s = subset.shape
+    doc_cap = ispec.doc_cap
+    mask = torch.zeros((b, kp + 1), dtype=torch.bool, device=subset.device)
+    for start in range(0, s, chunk):
+        pids = subset[:, start : start + chunk].long()
+        valid = _doc_mask(dev, pids, doc_cap)
+        tok_codes = torch.where(valid, dev.codes[pids], kp).long()
+        mask.scatter_(1, tok_codes.reshape(b, -1), True)
+    return mask[:, :kp]
+
+
+def _subset_filter(pid: torch.Tensor, subset: torch.Tensor, sent_pid: int) -> torch.Tensor:
+    """Sentinel-out the pids [B, N] not in the row-sorted subset [B, S]."""
+    pos = torch.searchsorted(subset, pid.contiguous())
+    pos = torch.clamp(pos, 0, subset.shape[1] - 1)
+    member = torch.gather(subset, 1, pos) == pid
+    return torch.where(member, pid, sent_pid)
+
+
 def _sort_pid_payload(
     pid: torch.Tensor, payload: torch.Tensor, payload_bound: int, sent_pid: int
 ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -196,11 +236,12 @@ def _slot_estimates(
 def candidates_impl(
     dev: DeviceIndex,
     queries: torch.Tensor,  # [B, Q, D] (zero-padded query tokens)
-    subset: torch.Tensor | None,
+    subset: torch.Tensor | None,  # [B, S] int32 sorted asc, sentinel_pid padding
     *,
     ispec: IndexSpec,
     n_ivf_probe: int,
     n_full_scores: int,
+    mem_budget: int = 256 * 1024 * 1024,
     cand_cap: int | None = None,
     approx_mode: str = "cells",
     with_stats: bool = False,
@@ -214,12 +255,11 @@ def candidates_impl(
     also a [B, 2] int32 array (budget-pruned slots, cap-overflow slots).
 
     See ``fast_plaid_tpu.search.engine.candidates_impl`` for the estimator
-    regimes. (The JAX signature's ``mem_budget`` sizes no chunk loop in the
-    branches ported here, so it is not taken.)
+    regimes. With a subset, only cells its documents occupy are probed, only
+    member pids keep their slots, and the budgeted branch scales its slot
+    budget by the corpus-to-subset density. ``mem_budget`` sizes the chunks
+    of the subset's cell mask.
     """
-    if subset is not None:
-        msg = "subset-restricted search is not ported yet (ROADMAP.md §1, subsets)"
-        raise NotImplementedError(msg)
     if approx_mode not in ("cells", "cells_full"):
         msg = (
             f"approx_mode={approx_mode!r} is not ported yet; the port runs "
@@ -249,6 +289,13 @@ def candidates_impl(
     probe_scores = torch.where(
         cell_valid[None, None, :] & tok_ok[..., None], scores_qc, NEG
     )
+    if subset is not None:
+        # Chunk of subset documents per scatter: the int64 index tensor
+        # (8 B a token), the gathered int32 codes and the mask (~24 B a
+        # token in all) stay within mem_budget.
+        chunk = max(8, min(subset.shape[1], mem_budget // (24 * b * ispec.doc_cap)))
+        allowed = _allowed_cells_mask(dev, subset, ispec, kp, chunk)
+        probe_scores = torch.where(allowed[:, None, :], probe_scores, NEG)
     probe = min(n_ivf_probe, kp)
     top_cell_scores, cells = torch.topk(probe_scores.reshape(b * q, kp), probe, dim=-1)
     top_cell_scores = top_cell_scores.reshape(b, q, probe)
@@ -324,6 +371,8 @@ def candidates_impl(
         valid = (iota_cc[None, None, :] < lens_s[..., None]) & cell_ok[..., None]
         width = c_sel * cell_cap
         pid = torch.where(valid, win, sent_pid).reshape(b, width)
+        if subset is not None:
+            pid = _subset_filter(pid, subset, sent_pid)
         vals = torch.where(valid, ct_s[..., None], NEG).reshape(b, width)
 
         # Dedup multi-cell docs: sort by pid, keep each run's max score.
@@ -355,6 +404,13 @@ def candidates_impl(
         order_b = _argsort_desc(cell_tot)
     else:
         budget = min(cand_cap, max(k2, slot_budget or 0))
+        if subset is not None:
+            # Density-scaled budget: only ~S / n_docs of an admitted cell's
+            # documents survive the membership filter, so scale the budget
+            # to admit as many subset documents as the unfiltered budget
+            # admits documents. (S is the padded subset width.)
+            density = max(1, ispec.n_docs // max(subset.shape[1], 1))
+            budget = min(cand_cap, budget * density)
         typical = max(1, cand_cap // max(c_cells, 1))
         c_sel = min(c_cells, max(8, -(-2 * budget // typical)))
         # Giant-cell demotion: hub cells rank below every normal cell.
@@ -402,6 +458,8 @@ def candidates_impl(
     valid = (iota_w[None, None, :] < rem[..., None]) & has[..., None]
     width = s_chunks * w
     pid = torch.where(valid, win, sent_pid).reshape(b, width)
+    if subset is not None:
+        pid = _subset_filter(pid, subset, sent_pid)
     ownw = owner[..., None].expand(b, s_chunks, w).reshape(b, width)
 
     # ---- 4. sort by pid carrying the owning cell; per-query-token
@@ -421,6 +479,8 @@ def candidates_impl(
             over = torch.clamp(total - kept, min=0).to(torch.int32)
             return p2, torch.stack([torch.zeros_like(over), over], dim=-1)
         budget_free = max(k2, slot_budget or 0)  # pre-cand_cap intent
+        if subset is not None:
+            budget_free = budget_free * max(1, ispec.n_docs // max(subset.shape[1], 1))
         ok_free = (csum_full - lens_o) < budget_free
         target_free = torch.sum(torch.where(ok_free, lens_o, 0), dim=-1)
         target_cap = torch.sum(torch.where(ok_full, lens_o, 0), dim=-1)
@@ -501,6 +561,27 @@ def q4_prefilter_core(
     return torch.where(torch.isneginf(s_m), sentinel_pid, torch.gather(p2, 1, i_m))
 
 
+def token_matrices(
+    codes_rows: torch.Tensor,  # [B, K, doc_cap] int32
+    res_rows: torch.Tensor,  # [B, K, doc_cap, PD] uint8
+    tok_valid: torch.Tensor,  # [B, K, doc_cap] bool
+    centroids: torch.Tensor,
+    bucket_weights: torch.Tensor,
+    queries: torch.Tensor,  # [B, Q, D]
+    *,
+    nbits: int,
+) -> torch.Tensor:
+    """[B, K, doc_cap, Q] float32 token-score matrices of winner documents
+    (zero past each document's length)."""
+    queries = queries.to(torch.float32)
+    emb = codec.decompress(
+        codes_rows, res_rows, centroids, bucket_weights, nbits,
+        out_dtype=torch.bfloat16,
+    )
+    _, tok = _exact_scores(emb, queries, tok_valid)
+    return torch.where(tok_valid[..., None], tok, 0.0)
+
+
 def _final_topk(exact: torch.Tensor, p2: torch.Tensor, top_k: int):
     r = p2.shape[1]
     kk = min(top_k, r)
@@ -531,39 +612,54 @@ def search_impl(
     rank_admit: int = 0,
 ):
     """Batched PLAID cascade. Returns (pids [B, top_k] int32 with -1
-    padding, scores [B, top_k] f32 with -inf padding), plus a [B, 2] int32
-    stats array with ``with_stats``.
+    padding, scores [B, top_k] f32 with -inf padding); with ``want_tokens``
+    also (token scores [B, top_k, doc_cap, Q] f32, doc lengths [B, top_k]
+    int32); with ``with_stats`` a final [B, 2] int32 stats array.
+
+    ``subset`` [B, S] int32 restricts each query to its row's documents. A
+    subset of at most twice the rerank pool is exact-reranked whole (the
+    result is brute-force MaxSim over the subset); a larger one takes the
+    cascade with the subset's probe mask and membership filter.
 
     ``use_estimate_kernel`` / ``use_rerank_kernel`` route stages 4 and 6
     through the kernel wrappers (the CUDA kernels on a GPU); False runs the
     plain PyTorch versions. Needs device-resident residuals unless the bf16
     corpus cache is resident.
     """
-    if want_tokens:
-        msg = "token-score matrices are not ported yet (ROADMAP.md §1)"
-        raise NotImplementedError(msg)
-    if subset is not None:
-        msg = "subset-restricted search is not ported yet (ROADMAP.md §1, subsets)"
-        raise NotImplementedError(msg)
     queries = queries.to(torch.float32)  # f16 wire staging -> f32 math
     doc_cap = ispec.doc_cap
     sent_pid = ispec.sentinel_pid
-    cand_out = candidates_impl(
-        dev,
-        queries,
-        None,
-        ispec=ispec,
-        n_ivf_probe=n_ivf_probe,
-        n_full_scores=n_full_scores,
-        cand_cap=cand_cap,
-        approx_mode=approx_mode,
-        with_stats=with_stats,
-        slot_budget=slot_budget,
-        use_estimate_kernel=use_estimate_kernel,
-        pool_divisor=pool_divisor,
-        rank_admit=rank_admit,
-    )
-    p2, stats = cand_out if with_stats else (cand_out, None)
+    r_pool = max(n_full_scores // pool_divisor, 1)
+    if subset is not None and subset.shape[1] <= 2 * r_pool:
+        # Direct-subset pool: skip stages 1-5 and exact-rerank every
+        # subset document (sorted, duplicates and out-of-range ids as
+        # sentinels).
+        sub_s = torch.sort(subset.to(torch.int32), dim=-1).values
+        sub_s = _dedup_sorted(sub_s, sent_pid)
+        p2 = torch.where((sub_s < 0) | (sub_s >= ispec.n_docs), sent_pid, sub_s)
+        stats = (
+            torch.zeros((queries.shape[0], 2), dtype=torch.int32, device=queries.device)
+            if with_stats
+            else None
+        )
+    else:
+        cand_out = candidates_impl(
+            dev,
+            queries,
+            subset,
+            ispec=ispec,
+            n_ivf_probe=n_ivf_probe,
+            n_full_scores=n_full_scores,
+            mem_budget=mem_budget,
+            cand_cap=cand_cap,
+            approx_mode=approx_mode,
+            with_stats=with_stats,
+            slot_budget=slot_budget,
+            use_estimate_kernel=use_estimate_kernel,
+            pool_divisor=pool_divisor,
+            rank_admit=rank_admit,
+        )
+        p2, stats = cand_out if with_stats else (cand_out, None)
     b, q, d = queries.shape
     r = p2.shape[1]
 
@@ -625,13 +721,73 @@ def search_impl(
             parts.append(torch.where(pids == sent_pid, NEG, sc))
         exact = torch.cat(parts, dim=1)[:, :r]
     fp, fs = _final_topk(exact, p2, top_k)
-    return (fp, fs, stats) if with_stats else (fp, fs)
+    if not want_tokens:
+        return (fp, fs, stats) if with_stats else (fp, fs)
+
+    # Token-score matrices of the winners only, recomputed.
+    safe = torch.where(fp < 0, sent_pid, fp).long()
+    valid = _doc_mask(dev, safe, doc_cap)
+    if dev.emb_cache is not None:
+        _, tok = _exact_scores(dev.emb_cache[safe], queries, valid)
+        tok = torch.where(valid[..., None], tok, 0.0)
+    else:
+        tok = token_matrices(
+            dev.codes[safe],
+            gather_res(dev.residuals, safe, doc_cap),
+            valid,
+            dev.centroids,
+            dev.bucket_weights,
+            queries,
+            nbits=ispec.nbits,
+        )
+    doc_lens = torch.where(fp < 0, 0, dev.doc_lengths[safe])
+    if with_stats:
+        return fp, fs, tok, doc_lens, stats
+    return fp, fs, tok, doc_lens
+
+
+def reconstruct_rows_core(
+    codes_rows: torch.Tensor,
+    res_rows: torch.Tensor,
+    tok_valid: torch.Tensor,
+    centroids: torch.Tensor,
+    bucket_weights: torch.Tensor,
+    *,
+    nbits: int,
+) -> torch.Tensor:
+    """Decompress pre-gathered token rows in float32 (low_memory
+    reconstruction); zero past each document's length."""
+    emb = codec.decompress(codes_rows, res_rows, centroids, bucket_weights, nbits)
+    return torch.where(tok_valid[..., None], emb, 0.0)
+
+
+def reconstruct_core(
+    dev: DeviceIndex, pids: torch.Tensor, *, ispec: IndexSpec
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Decompress documents: [S] pids -> ([S, doc_cap, D] f32, [S] lengths).
+
+    Always from the codec in float32, never from the bf16 cache:
+    get_embeddings promises full-precision decompression. Needs
+    device-resident residuals.
+    """
+    pids = pids.long()
+    valid = _doc_mask(dev, pids, ispec.doc_cap)
+    emb = codec.decompress(
+        dev.codes[pids],
+        gather_res(dev.residuals, pids, ispec.doc_cap),
+        dev.centroids,
+        dev.bucket_weights,
+        ispec.nbits,
+    )
+    emb = torch.where(valid[..., None], emb, 0.0)
+    return emb, dev.doc_lengths[pids]
 
 
 # The JAX package jit-compiles these; PyTorch runs them eagerly.
 search_core = search_impl
 candidates_core = candidates_impl
 rerank_rows_core = rerank_rows
+token_matrices_core = token_matrices
 final_topk_core = _final_topk
 
 

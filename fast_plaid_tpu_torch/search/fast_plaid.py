@@ -1,9 +1,10 @@
 """FastPlaid — the public API class (port of ``fast_plaid_tpu/search/fast_plaid.py``).
 
-Device resolution, ``create`` and ``search``, the cross-process FileLock and
-the mtime-triggered reload, over the PyTorch engine. ``update``, ``delete``,
-``search_token_scores`` and ``get_embeddings`` are not ported yet and raise
-NotImplementedError (ROADMAP.md §1).
+Device resolution; ``create`` (with SQLite metadata), ``update``,
+``delete``, ``search`` (with subsets), ``search_token_scores`` and
+``get_embeddings``; the cross-process FileLock and the mtime-triggered
+reload, over the PyTorch engine. With several devices the query batch is
+split across them.
 
 Embeddings in and out are numpy arrays (anything ``np.asarray`` accepts,
 CPU torch tensors included).
@@ -20,11 +21,20 @@ from typing import Any
 import numpy as np
 import torch
 
+from fast_plaid_tpu_torch import filtering
 from fast_plaid_tpu_torch.index import storage
 from fast_plaid_tpu_torch.index.builder import create_index as build_index
+from fast_plaid_tpu_torch.index.deleter import delete_from_index
+from fast_plaid_tpu_torch.search import update as update_mod
+from fast_plaid_tpu_torch.search.engine import reconstruct_core, reconstruct_rows_core
 from fast_plaid_tpu_torch.search.kmeans import compute_kmeans
 from fast_plaid_tpu_torch.search.load import LoadedIndex, reload_index
-from fast_plaid_tpu_torch.search.searcher import normalize_queries, search_on_device
+from fast_plaid_tpu_torch.search.searcher import (
+    host_gather_rows,
+    normalize_queries,
+    normalize_subset,
+    search_on_device,
+)
 from fast_plaid_tpu_torch.utils.locking import FileLock, Timeout
 
 __all__ = ["FastPlaid", "resolve_devices", "default_mem_budget"]
@@ -92,11 +102,6 @@ def _format_embeddings(embeddings) -> list[np.ndarray]:
     return [arr[i] for i in range(arr.shape[0])]
 
 
-def _not_ported(what: str):
-    msg = f"FastPlaid.{what} is not ported to PyTorch yet (see ROADMAP.md §1)"
-    raise NotImplementedError(msg)
-
-
 class FastPlaid:
     """Create and search a PLAID index with concurrent safety."""
 
@@ -124,6 +129,10 @@ class FastPlaid:
         os.makedirs(self.index, exist_ok=True)
         self.lock_path = os.path.join(self.index, "plaid.lock")
         self.lock = FileLock(self.lock_path)
+        # Held by this instance's create / update / delete. The FileLock is
+        # shared by all threads of the process, so without it a search on
+        # another thread would reload from a half-written index.
+        self._mutation_lock = threading.RLock()
         self._index_swap_lock = threading.RLock()
         self._last_known_mtime = -1.0
         self.indices: dict[str, LoadedIndex | None] = {}
@@ -168,21 +177,43 @@ class FastPlaid:
         current = self._current_mtime()
         if current == self._last_known_mtime and self.indices:
             return False
+        # A mutation on another thread of this instance: wait for it when
+        # blocking, else keep serving the current index.
+        if not self._mutation_lock.acquire(blocking=blocking):
+            return False
         try:
-            self.lock.acquire(timeout=-1.0 if blocking else 0.0)
-        except Timeout:
-            return False  # an update is in flight; keep serving current index
-        try:
-            current = self._current_mtime()
-            if current == self._last_known_mtime and self.indices:
-                return False
-            new_indices = self._reload()
-            with self._index_swap_lock:
-                self.indices = new_indices
-                self._last_known_mtime = current
-            return True
+            try:
+                self.lock.acquire(timeout=-1.0 if blocking else 0.0)
+            except Timeout:
+                return False  # an update is in flight; keep serving current index
+            try:
+                current = self._current_mtime()
+                if current == self._last_known_mtime and self.indices:
+                    return False
+                new_indices = self._reload()
+                with self._index_swap_lock:
+                    self.indices = new_indices
+                    self._last_known_mtime = current
+                return True
+            finally:
+                self.lock.release()
         finally:
-            self.lock.release()
+            self._mutation_lock.release()
+
+    def _loaded_indices(self) -> dict[str, LoadedIndex | None]:
+        """The current indices, reloaded first when they changed on disk.
+
+        While a mutation on another thread has freed them, this waits for
+        its reload.
+        """
+        self._check_and_reload_index(blocking=False)
+        with self._index_swap_lock:
+            indices = dict(self.indices)
+        if any(v is None for v in indices.values()) or not indices:
+            self._check_and_reload_index(blocking=True)
+            with self._index_swap_lock:
+                indices = dict(self.indices)
+        return indices
 
     def _reload_and_swap(self) -> None:
         with self._index_swap_lock:
@@ -227,16 +258,24 @@ class FastPlaid:
         show_progress: bool = False,
     ) -> "FastPlaid":
         """Create and persist the index; k-means and compression run on the
-        first device."""
-        if metadata is not None:
-            _not_ported("create(metadata=...)")
-        with self.lock:
+        first device. ``metadata`` (one dict per document) goes into the
+        SQLite store that ``filtering.where`` queries."""
+        with self._mutation_lock, self.lock:
             docs = _format_embeddings(documents_embeddings)
             if not docs:
                 msg = "documents_embeddings must not be empty."
                 raise ValueError(msg)
             dim = docs[0].shape[-1]
             self._prepare_index_directory(self.index)
+
+            if metadata is not None:
+                if len(metadata) != len(docs):
+                    msg = (
+                        f"The length of metadata ({len(metadata)}) must match "
+                        f"the number of documents_embeddings ({len(docs)})."
+                    )
+                    raise ValueError(msg)
+                filtering.create(index=self.index, metadata=metadata)
 
             if len(docs) <= start_from_scratch:
                 storage.save_object_npy(
@@ -267,30 +306,143 @@ class FastPlaid:
         return self
 
     # ------------------------------------------------------------------
+    # update / delete
+    # ------------------------------------------------------------------
+
+    def update(
+        self,
+        documents_embeddings,
+        metadata: list[dict[str, Any]] | None = None,
+        batch_size: int = 25_000,
+        kmeans_niters: int = 4,
+        max_points_per_centroid: int = 256,
+        n_samples_kmeans: int | None = None,
+        seed: int = 42,
+        start_from_scratch: int = 999,
+        buffer_size: int = 100,
+        use_triton_kmeans: bool | None = False,  # noqa: ARG002 - API parity
+    ) -> "FastPlaid":
+        """Add documents to an existing index (or create it); new ids follow
+        the existing ones. Compression and k-means run on the first device."""
+        with self._mutation_lock, self.lock:
+            docs = _format_embeddings(documents_embeddings)
+            update_mod.process_update(
+                index_path=self.index,
+                documents_embeddings=docs,
+                metadata=metadata,
+                batch_size=batch_size,
+                kmeans_niters=kmeans_niters,
+                max_points_per_centroid=max_points_per_centroid,
+                n_samples_kmeans=n_samples_kmeans,
+                seed=seed,
+                start_from_scratch=start_from_scratch,
+                buffer_size=buffer_size,
+                create_fn=self.create,
+                delete_fn=self.delete,
+                device=self.devices[0],
+            )
+            self._reload_and_swap()
+        return self
+
+    def delete(
+        self,
+        subset: list[int],
+        _delete_metadata: bool = True,
+        _delete_buffer: bool = True,
+    ) -> "FastPlaid":
+        """Delete documents by id; the remaining ids shift down."""
+        with self._mutation_lock, self.lock:
+            subset = sorted({int(i) for i in subset})
+            meta = storage.load_metadata(self.index)
+            pre_num_documents = int(meta.get("num_documents", 0))
+
+            delete_from_index(self.index, subset)
+
+            if _delete_metadata and os.path.exists(
+                os.path.join(self.index, "metadata.db")
+            ):
+                filtering.delete(index=self.index, subset=subset)
+
+            # Rewrite the raw-embedding store minus deleted rows.
+            emb_path = os.path.join(self.index, "embeddings.npy")
+            if os.path.exists(emb_path):
+                arrays = storage.load_object_npy(emb_path)
+                drop = {i for i in subset if i < len(arrays)}
+                remaining = [a for i, a in enumerate(arrays) if i not in drop]
+                if remaining:
+                    storage.save_object_npy(emb_path, remaining)
+                else:
+                    os.remove(emb_path)
+
+            # Rewrite the update buffer: buffered docs are the last
+            # len(buffer) docs of the pre-delete index.
+            buffer_path = os.path.join(self.index, "buffer.npy")
+            if _delete_buffer and os.path.exists(buffer_path):
+                buffered = storage.load_object_npy(buffer_path)
+                buffer_start = pre_num_documents - len(buffered)
+                drop_local = {
+                    i - buffer_start
+                    for i in subset
+                    if buffer_start <= i < pre_num_documents
+                }
+                if drop_local:
+                    remaining = [
+                        a for i, a in enumerate(buffered) if i not in drop_local
+                    ]
+                    if remaining:
+                        storage.save_object_npy(buffer_path, remaining)
+                    else:
+                        os.remove(buffer_path)
+
+            self._reload_and_swap()
+        return self
+
+    # ------------------------------------------------------------------
     # search
     # ------------------------------------------------------------------
 
     def _prepare_search(self, queries_embeddings, subset):
-        if subset is not None:
-            _not_ported("search(subset=...)")
-        self._check_and_reload_index(blocking=False)
+        indices = self._loaded_indices()
         if not os.path.exists(os.path.join(self.index, "metadata.json")):
             msg = (
                 f"Index metadata not found in '{self.index}'. "
                 "Please create the index before searching."
             )
             raise FileNotFoundError(msg)
-        with self._index_swap_lock:
-            indices = dict(self.indices)
-        if any(v is None for v in indices.values()) or not indices:
-            self._check_and_reload_index(blocking=True)
-            with self._index_swap_lock:
-                indices = dict(self.indices)
         for key, loaded in indices.items():
             if loaded is None:
                 msg = f"Index could not be loaded on device '{key}'."
                 raise RuntimeError(msg)
-        return indices, normalize_queries(queries_embeddings)
+        queries = normalize_queries(queries_embeddings)
+        return indices, queries, normalize_subset(subset, len(queries))
+
+    def _dispatch_search(self, indices, queries, subsets, **kwargs) -> list:
+        """Run on the first device, or split the query batch (and its
+        subsets) across the devices."""
+        loaded = [indices[str(d)] for d in self.devices]
+        kwargs["mem_budget"] = self.mem_budget
+        if len(loaded) == 1 or len(queries) <= 1:
+            return search_on_device(loaded[0], queries, subsets=subsets, **kwargs)
+        n_dev = min(len(loaded), len(queries))
+        per = math.ceil(len(queries) / n_dev)
+        chunks = [
+            (
+                loaded[i],
+                queries[i * per : (i + 1) * per],
+                subsets[i * per : (i + 1) * per] if subsets is not None else None,
+            )
+            for i in range(n_dev)
+        ]
+        results: list = []
+        with ThreadPoolExecutor(max_workers=n_dev) as pool:
+            futures = [
+                pool.submit(search_on_device, ld, qs, subsets=ss, **kwargs)
+                for ld, qs, ss in chunks
+                if qs
+            ]
+            for fut in futures:
+                results.extend(fut.result())
+        return results
 
     def search(
         self,
@@ -308,51 +460,112 @@ class FastPlaid:
     ) -> list[list[tuple[int, float]]]:
         """Search the index; returns per query a list of (doc_id, score).
 
-        Same parameters and defaults as ``fast_plaid_tpu``'s FastPlaid.search;
-        ``subset`` is not ported yet. With several devices the query batch
-        is split across them.
+        Same parameters and defaults as ``fast_plaid_tpu``'s FastPlaid.search.
+        ``subset``: one id list for every query, an int, or one list per
+        query (ids from ``filtering.where``). With several devices the query
+        batch is split across them.
         """
-        indices, queries = self._prepare_search(queries_embeddings, subset)
-        kwargs = dict(
+        indices, queries, subsets = self._prepare_search(queries_embeddings, subset)
+        return self._dispatch_search(
+            indices,
+            queries,
+            subsets,
+            want_tokens=False,
             top_k=top_k,
             n_full_scores=n_full_scores,
             n_ivf_probe=n_ivf_probe,
-            mem_budget=self.mem_budget,
             show_progress=show_progress,
             approx_mode=approx_mode,
             max_tile=batch_size,
             pool_divisor=pool_divisor,
             rank_admit=rank_admit,
         )
-        loaded = [indices[str(d)] for d in self.devices]
-        if len(loaded) == 1 or len(queries) <= 1:
-            return search_on_device(loaded[0], queries, **kwargs)
-        n_dev = min(len(loaded), len(queries))
-        per = math.ceil(len(queries) / n_dev)
-        parts = [queries[i * per : (i + 1) * per] for i in range(n_dev)]
-        results: list = []
-        with ThreadPoolExecutor(max_workers=n_dev) as pool:
-            futures = [
-                pool.submit(search_on_device, ld, qs, **kwargs)
-                for ld, qs in zip(loaded, parts)
-                if qs
-            ]
-            for fut in futures:
-                results.extend(fut.result())
-        return results
+
+    def search_token_scores(
+        self,
+        queries_embeddings,
+        top_k: int = 10,
+        batch_size: int = 2000,
+        n_full_scores: int = 4096,
+        n_ivf_probe: int = 8,
+        show_progress: bool = True,
+        subset: list[list[int]] | list[int] | None = None,
+        n_processes: int | None = None,  # noqa: ARG002 - API parity
+        approx_mode: str = "auto",
+        pool_divisor: int | None = None,
+        rank_admit: int | None = None,
+    ) -> list[list[tuple[int, float, np.ndarray]]]:
+        """Like search() but each tuple carries a [q_tokens, doc_tokens]
+        token-score matrix."""
+        indices, queries, subsets = self._prepare_search(queries_embeddings, subset)
+        return self._dispatch_search(
+            indices,
+            queries,
+            subsets,
+            want_tokens=True,
+            top_k=top_k,
+            n_full_scores=n_full_scores,
+            n_ivf_probe=n_ivf_probe,
+            show_progress=show_progress,
+            approx_mode=approx_mode,
+            max_tile=batch_size,
+            pool_divisor=pool_divisor,
+            rank_admit=rank_admit,
+        )
 
     # ------------------------------------------------------------------
-    # not ported yet
+    # reconstruction
     # ------------------------------------------------------------------
 
-    def update(self, *args, **kwargs):  # noqa: ARG002
-        _not_ported("update")
-
-    def delete(self, *args, **kwargs):  # noqa: ARG002
-        _not_ported("delete")
-
-    def search_token_scores(self, *args, **kwargs):  # noqa: ARG002
-        _not_ported("search_token_scores")
-
-    def get_embeddings(self, *args, **kwargs):  # noqa: ARG002
-        _not_ported("get_embeddings")
+    def get_embeddings(self, subset: list[int]) -> list[np.ndarray]:
+        """Reconstruct (decompress, float32) document embeddings by id."""
+        if not subset:
+            return []
+        loaded = self._loaded_indices().get(str(self.devices[0]))
+        if loaded is None:
+            msg = "Index not loaded."
+            raise RuntimeError(msg)
+        pids = np.asarray(subset, dtype=np.int64)
+        n_docs = (
+            len(loaded.host_doc_lengths) if loaded.low_memory else loaded.ispec.n_docs
+        )
+        bad = pids[(pids < 0) | (pids >= n_docs)]
+        if bad.size:
+            msg = (
+                f"get_embeddings ids must be in [0, {n_docs}); got "
+                f"{bad[:8].tolist()}"
+            )
+            raise ValueError(msg)
+        sent = loaded.ispec.sentinel_pid
+        block = 256
+        out: list[np.ndarray] = []
+        with torch.inference_mode():
+            for start in range(0, len(pids), block):
+                chunk = pids[start : start + block]
+                padded = np.full((block,), sent, np.int64)
+                padded[: len(chunk)] = chunk
+                if loaded.low_memory:
+                    codes_rows, res_rows, _ = host_gather_rows(
+                        loaded, padded[None, :], pin=loaded.device.type == "cuda"
+                    )
+                    pid_dev = torch.from_numpy(padded).to(loaded.device)
+                    lens = loaded.dev.doc_lengths[pid_dev]
+                    valid = torch.arange(loaded.ispec.doc_cap, device=lens.device) < lens[:, None]
+                    emb = reconstruct_rows_core(
+                        codes_rows[0].to(loaded.device, non_blocking=True),
+                        res_rows[0].to(loaded.device, non_blocking=True),
+                        valid,
+                        loaded.dev.centroids,
+                        loaded.dev.bucket_weights,
+                        nbits=loaded.ispec.nbits,
+                    )
+                else:
+                    emb, lens = reconstruct_core(
+                        loaded.dev,
+                        torch.from_numpy(padded).to(loaded.device),
+                        ispec=loaded.ispec,
+                    )
+                emb, lens = emb.cpu().numpy(), lens.cpu().numpy()
+                for i in range(len(chunk)):
+                    out.append(np.asarray(emb[i, : int(lens[i])], dtype=np.float32))
+        return out

@@ -10,7 +10,10 @@ A low_memory index keeps codes and residuals in host RAM. Its tiles run in
 a two-tile pipeline: the device candidate cascade (and, with the q4 cache
 resident, the q4 prefilter down to ``rescue_pool(top_k)`` rows a query),
 then a host gather of only those rows on a worker thread, then the
-codec-exact rerank of the gathered rows on the device.
+codec-exact rerank of the gathered rows on the device. Token-score matrices
+gather the winners' rows on the host a second time. A low_memory search
+with a subset always takes the cascade, never the direct-subset pool, as in
+the JAX package.
 """
 
 from __future__ import annotations
@@ -36,12 +39,14 @@ from fast_plaid_tpu_torch.search.engine import (
     search_core,
     suggest_query_tile,
     suggest_slot_budget,
+    token_matrices_core,
 )
 from fast_plaid_tpu_torch.search.load import LoadedIndex
 
 __all__ = [
     "search_on_device",
     "normalize_queries",
+    "normalize_subset",
     "last_search_stats",
     "host_gather_rows",
 ]
@@ -85,6 +90,35 @@ def normalize_queries(queries_embeddings) -> list[np.ndarray]:
     if arr.ndim == 2:
         arr = arr[None]
     return [arr[i] for i in range(arr.shape[0])]
+
+
+def normalize_subset(subset, num_queries: int) -> list[list[int]] | None:
+    """int -> the same list for all queries; flat list -> replicated; list of
+    lists kept. An empty list means no subset."""
+    if subset is None:
+        return None
+    if isinstance(subset, int):
+        subset = [subset]
+    if isinstance(subset, list) and len(subset) == 0:
+        return None
+    if isinstance(subset, list) and isinstance(subset[0], (int, np.integer)):
+        subset = [list(subset)] * num_queries
+    if len(subset) != num_queries:
+        msg = "Subset length must match number of queries."
+        raise ValueError(msg)
+    return [list(map(int, s)) for s in subset]
+
+
+def _pad_subsets(subsets: list[list[int]], n_docs: int, tile: slice) -> np.ndarray:
+    """[rows, S] int32: each row's in-range ids sorted, ``n_docs`` padding
+    (the sentinel pid), S the longest row rounded up to 8."""
+    rows = subsets[tile]
+    s_cap = round_up(max([len(s) for s in rows] + [1]), 8)
+    out = np.full((len(rows), s_cap), n_docs, dtype=np.int32)
+    for i, s in enumerate(rows):
+        vals = np.asarray(sorted(v for v in s if 0 <= v < n_docs), dtype=np.int32)
+        out[i, : len(vals)] = vals
+    return out
 
 
 def _pad_queries(
@@ -179,9 +213,11 @@ def host_gather_rows(loaded: LoadedIndex, pids: np.ndarray, *, pin: bool = False
 def _lm_candidates(
     loaded: LoadedIndex,
     tile_dev: torch.Tensor,
+    sub_dev: torch.Tensor | None = None,
     *,
     n_ivf_probe: int,
     n_full_scores: int,
+    mem_budget: int = 256 * 1024 * 1024,
     cand_cap: int | None,
     approx_mode: str,
     slot_budget: int | None = None,
@@ -193,10 +229,11 @@ def _lm_candidates(
     return candidates_core(
         loaded.dev,
         tile_dev,
-        None,
+        sub_dev,
         ispec=loaded.ispec,
         n_ivf_probe=n_ivf_probe,
         n_full_scores=n_full_scores,
+        mem_budget=mem_budget,
         cand_cap=cand_cap,
         approx_mode=approx_mode,
         with_stats=True,
@@ -216,12 +253,16 @@ def _lm_finish(
     *,
     top_k: int,
     mem_budget: int,
+    want_tokens: bool = False,
 ):
     """low_memory phase 3: device rerank of the rows gathered on the host.
 
     The token mask is rebuilt on the device from the resident lengths (the
     same mask the host gather returns): a copy from pageable host memory
-    would wait for the whole stream, the next tile's cascade included.
+    would wait for the whole stream, the next tile's cascade included. With
+    ``want_tokens`` the winners' rows are gathered on the host a second time
+    (into pinned memory on a GPU) and their token scores computed on the
+    device.
     """
     ispec = loaded.ispec
     codes_rows, res_rows = (x.to(loaded.device, non_blocking=True) for x in rows[:2])
@@ -240,7 +281,31 @@ def _lm_finish(
         mem_budget=mem_budget,
     )
     fp, fs = final_topk_core(exact, p2, top_k)
-    return fp, fs, stats
+    if not want_tokens:
+        return fp, fs, stats
+    fp_host, ready = _to_host_async(fp)
+    if ready is not None:
+        ready.synchronize()  # the winners alone, not the whole stream
+    fp_np = fp_host.numpy()
+    rows_k = host_gather_rows(
+        loaded,
+        np.where(fp_np < 0, ispec.sentinel_pid, fp_np),
+        pin=loaded.device.type == "cuda",
+    )
+    codes_k, res_k = (x.to(loaded.device, non_blocking=True) for x in rows_k[:2])
+    safe = torch.where(fp < 0, ispec.sentinel_pid, fp).long()
+    doc_lens = torch.where(fp < 0, 0, loaded.dev.doc_lengths[safe])
+    valid_k = torch.arange(ispec.doc_cap, device=fp.device) < doc_lens[..., None]
+    tok = token_matrices_core(
+        codes_k,
+        res_k,
+        valid_k,
+        loaded.dev.centroids,
+        loaded.dev.bucket_weights,
+        tile_dev,
+        nbits=ispec.nbits,
+    )
+    return fp, fs, tok, doc_lens, stats
 
 
 def _to_host_async(x: torch.Tensor):
@@ -277,17 +342,14 @@ def search_on_device(
 ) -> list:
     """Run the cascade for a list of queries on one device.
 
-    Returns, per query, a list of (pid, score) tuples. A malformed or
-    non-finite query yields an empty result; a tile whose device work fails
-    yields empty results for its queries, with a RuntimeWarning.
+    Returns, per query, a list of (pid, score) tuples, or (pid, score,
+    token_matrix [q_tokens, doc_tokens]) with ``want_tokens``. ``subsets``
+    (one id list per query, see ``normalize_subset``) restricts each query
+    to its ids. A malformed or non-finite query yields an empty result; a
+    tile whose device work fails yields empty results for its queries, with
+    a RuntimeWarning.
     """
     ispec = loaded.ispec
-    if subsets is not None:
-        msg = "subset-restricted search is not ported yet (ROADMAP.md §1, subsets)"
-        raise NotImplementedError(msg)
-    if want_tokens:
-        msg = "token-score matrices are not ported yet (ROADMAP.md §1)"
-        raise NotImplementedError(msg)
     if not ispec.has_ivf:
         msg = (
             "This index was created with compress_only=True and has no IVF; "
@@ -413,14 +475,26 @@ def search_on_device(
                 [tile, np.zeros((b_tile - (end - start), q_cap, ispec.dim), np.float32)]
             )
         tile_dev = torch.from_numpy(tile.astype(wire_dtype)).to(loaded.device)
-        return end, tile_dev
+        sub_dev = None
+        if subsets is not None:
+            sub = _pad_subsets(subsets, ispec.n_docs, slice(start, end))
+            if sub.shape[0] < b_tile:
+                pad = np.full(
+                    (b_tile - sub.shape[0], sub.shape[1]), ispec.n_docs, np.int32
+                )
+                sub = np.concatenate([sub, pad])
+            sub_dev = torch.from_numpy(sub).to(loaded.device)
+        return end, tile_dev, sub_dev
 
     def emit(out, start: int, end: int) -> None:
         nonlocal pruned_total, overflow_total
         try:
             if isinstance(out, Exception):
                 raise out
-            pids, scores, stats = (t.cpu().numpy() for t in out)
+            if want_tokens:
+                pids, scores, tok, doc_lens, stats = (t.cpu().numpy() for t in out)
+            else:
+                pids, scores, stats = (t.cpu().numpy() for t in out)
         except RuntimeError as exc:  # device-side failure: contain to this tile
             warnings.warn(
                 f"search failed for queries [{start}, {end}) — returning "
@@ -438,13 +512,23 @@ def search_on_device(
             if (start + bi) in bad_queries:
                 results.append([])
                 continue
-            results.append(
-                [
-                    (pid, score)
-                    for pid, score in zip(pids_l[bi], scores_l[bi])
-                    if pid >= 0
-                ]
-            )
+            if want_tokens:
+                qlen = q_lens[start + bi]
+                results.append(
+                    [
+                        (pid, score, tok[bi, ki, : doc_lens[bi, ki], :qlen].T.copy())
+                        for ki, (pid, score) in enumerate(zip(pids_l[bi], scores_l[bi]))
+                        if pid >= 0
+                    ]
+                )
+            else:
+                results.append(
+                    [
+                        (pid, score)
+                        for pid, score in zip(pids_l[bi], scores_l[bi])
+                        if pid >= 0
+                    ]
+                )
 
     def gather_stage(p2_host, ready):
         if ready is not None:
@@ -458,7 +542,7 @@ def search_on_device(
             tile_dev, p2, stats, fut = job
             out = _lm_finish(
                 loaded, tile_dev, p2, stats, fut.result(), top_k=top_k,
-                mem_budget=mem_budget,
+                mem_budget=mem_budget, want_tokens=want_tokens,
             )
         except RuntimeError as exc:  # gather/rerank failure: emit contains it
             out = exc
@@ -473,13 +557,15 @@ def search_on_device(
             # other.
             with ThreadPoolExecutor(max_workers=1) as pool:
                 for start in iterator:
-                    end, tile_dev = make_tile(start)
+                    end, tile_dev, sub_dev = make_tile(start)
                     try:
                         p2, stats = _lm_candidates(
                             loaded,
                             tile_dev,
+                            sub_dev,
                             n_ivf_probe=n_ivf_probe,
                             n_full_scores=n_full_scores,
+                            mem_budget=mem_budget,
                             cand_cap=cand_cap,
                             approx_mode=approx_mode,
                             slot_budget=slot_budget,
@@ -513,16 +599,17 @@ def search_on_device(
             # waits for the device, so tile i converts only after tile i+1
             # is enqueued.
             for start in iterator:
-                end, tile_dev = make_tile(start)
+                end, tile_dev, sub_dev = make_tile(start)
                 try:
                     out = search_core(
                         loaded.dev,
                         tile_dev,
-                        None,
+                        sub_dev,
                         ispec=ispec,
                         top_k=top_k,
                         n_ivf_probe=n_ivf_probe,
                         n_full_scores=n_full_scores,
+                        want_tokens=want_tokens,
                         mem_budget=mem_budget,
                         cand_cap=cand_cap,
                         approx_mode=approx_mode,

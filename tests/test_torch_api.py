@@ -102,20 +102,73 @@ def test_create_index_files_match(tmp_path, corpus):
                 assert fa.read() == fb.read(), name
 
 
-def test_unported_entry_points_raise(tmp_path, corpus):
+@pytest.fixture
+def twins(tmp_path, corpus):
+    """One index created with metadata by the port, and a copy of it for the
+    JAX package (two builds train different k-means)."""
+    import shutil
+
+    docs, _ = corpus
+    meta = [{"cat": i % 3, "name": f"d{i}"} for i in range(40)]
+    pt, pj = str(tmp_path / "torch"), str(tmp_path / "jax")
+    ft = tsearch.FastPlaid(index=pt, device="cpu").create(docs[:40], metadata=meta)
+    shutil.copytree(pt, pj)
+    return {"jax": (pj, jsearch.FastPlaid(index=pj, device="cpu")), "torch": (pt, ft), "meta": meta}
+
+
+@pytest.mark.parametrize(
+    "call",
+    ["create_metadata", "search_subset", "search_token_scores", "get_embeddings", "update", "delete"],
+)
+def test_mutable_entry_points_match_jax(twins, corpus, call):
+    """The six entry points the port once refused now run and match the JAX
+    package on the same index."""
+    from fast_plaid_tpu import filtering as jfilt
+    from fast_plaid_tpu_torch import filtering as tfilt
+
     docs, queries = corpus
-    fp = tsearch.FastPlaid(index=str(tmp_path / "idx"), device="cpu")
-    fp.create(documents_embeddings=docs[:40])
-    for call in (
-        lambda: fp.update(docs[:2]),
-        lambda: fp.delete([0]),
-        lambda: fp.search_token_scores(queries),
-        lambda: fp.get_embeddings([0]),
-        lambda: fp.search(queries, subset=[0, 1]),
-        lambda: fp.create(docs[:40], metadata=[{}] * 40),
-    ):
-        with pytest.raises(NotImplementedError):
-            call()
+    (pj, fj), (pt, ft) = twins["jax"], twins["torch"]
+    if call == "create_metadata":
+        pk = os.path.join(os.path.dirname(pt), "jax_created")
+        jsearch.FastPlaid(index=pk, device="cpu").create(docs[:40], metadata=twins["meta"])
+        assert tfilt.get(index=pt) == jfilt.get(index=pk) == jfilt.get(index=pj)
+        assert_same_results(_search(ft, queries), _search(fj, queries))
+    elif call == "search_subset":
+        ids = tfilt.where(pt, "cat = ?", (1,))
+        assert ids == jfilt.where(pj, "cat = ?", (1,)) == list(range(1, 40, 3))
+        rt = ft.search(queries, top_k=5, subset=ids, show_progress=False)
+        assert_same_results(rt, fj.search(queries, top_k=5, subset=ids, show_progress=False))
+        assert all({p for p, _ in r} <= set(ids) for r in rt)
+    elif call == "search_token_scores":
+        rt = ft.search_token_scores(queries, top_k=5, show_progress=False)
+        rj = fj.search_token_scores(queries, top_k=5, show_progress=False)
+        assert_same_results([[(p, s) for p, s, _ in r] for r in rt],
+                            [[(p, s) for p, s, _ in r] for r in rj])
+        for row_t, row_j in zip(rt, rj):
+            mats = {p: m for p, _, m in row_j}
+            for p, _, m in row_t:
+                if p in mats:
+                    np.testing.assert_allclose(m, mats[p], rtol=0, atol=TOL)
+    elif call == "get_embeddings":
+        ids = [0, 39, 17, 17]
+        for a, b in zip(ft.get_embeddings(ids), fj.get_embeddings(ids)):
+            np.testing.assert_allclose(a, b, rtol=0, atol=1e-5)
+    elif call == "update":
+        new = docs[40:46]
+        meta = [{"cat": 7}] * 6
+        ft.update(new, metadata=meta, start_from_scratch=0)
+        fj.update(new, metadata=meta, start_from_scratch=0)
+        assert tfilt.where(pt, "cat = 7") == jfilt.where(pj, "cat = 7") == list(range(40, 46))
+        rt = _search(ft, queries)
+        assert_same_results(rt, _search(fj, queries))
+        assert _search(ft, docs[44][None, :8])[0][0][0] == 44
+    else:
+        ft.delete([0, 7, 21])
+        fj.delete([0, 7, 21])
+        assert tfilt.get(index=pt) == jfilt.get(index=pj)
+        assert len(tfilt.get(index=pt)) == 37
+        assert_same_results(_search(ft, queries), _search(fj, queries))
+        assert _search(ft, docs[22][None, :8])[0][0][0] == 19
 
 
 def test_resolve_devices():

@@ -150,3 +150,39 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     emb64 = torch.zeros((8, 16, 64), dtype=torch.bfloat16, device=cuda)  # D 64
     with pytest.raises(ValueError):
         maxsim_gather_scores_dedup(emb64, ids, ids, torch.zeros((1, 16, 64), device=cuda))
+
+
+@pytest.mark.parametrize("r", [8, 24, 256, 3608])
+def test_rerank_kernels_ragged_pool_widths(cuda, r):
+    """The direct-subset pool hands stage 6 any multiple of 8 as R: sorted
+    pids with duplicates and sentinel padding. Kernels 2, 3 and 4 hold
+    against their plain versions there."""
+    g = torch.Generator(device=cuda).manual_seed(r)
+    npd, doc_cap, d, b, q = 400, 48, 128, 6, 32
+    sent = npd - 1
+    emb = torch.randn((npd, doc_cap, d), generator=g, device=cuda).to(torch.bfloat16)
+    doc_lengths = torch.randint(1, doc_cap + 1, (npd,), generator=g, device=cuda, dtype=torch.int32)
+    doc_lengths[sent] = 0
+    pids = torch.sort(
+        torch.randint(0, sent, (b, r), generator=g, device=cuda, dtype=torch.int32), dim=-1
+    ).values
+    pids[:, -min(r, 5):] = sent
+    pids = pids.contiguous()
+    lens = doc_lengths[pids.long()]
+    queries = torch.randn((b, q, d), generator=g, device=cuda)
+    before = (maxsim_gather_scores.launches, maxsim_gather_scores_dedup.launches,
+              maxsim_q4_gather_scores.launches)
+    got2 = maxsim_gather_scores(emb, pids, lens, queries)
+    _close(got2, maxsim_gather_scores_plain(emb, pids, lens, queries))
+    got4 = maxsim_gather_scores_dedup(emb, pids, lens, queries)
+    _close(got4, maxsim_gather_scores_dedup_plain(emb, pids, lens, queries))
+    _close(got4, got2)
+    caph = doc_cap // 2
+    emb_q4 = torch.randint(0, 256, (npd * caph, d), generator=g, device=cuda).to(torch.uint8)
+    scale = torch.rand((npd,), generator=g, device=cuda)
+    got3 = maxsim_q4_gather_scores(emb_q4, scale, pids, lens, queries)
+    _close(got3, maxsim_q4_gather_scores_plain(emb_q4, scale, pids, lens, queries))
+    after = (maxsim_gather_scores.launches, maxsim_gather_scores_dedup.launches,
+             maxsim_q4_gather_scores.launches)
+    assert after == tuple(x + 1 for x in before)
+    assert torch.isneginf(got2[:, -1]).all() and got2.shape == (b, r)

@@ -227,14 +227,18 @@ def test_stats_match_jax(index):
 
 
 def test_unported_options_raise(index):
+    """The ``tokens`` estimator is not ported; token matrices and subsets
+    are, and run."""
     q = torch.from_numpy(index["queries"])
     base = dict(ispec=index["spec_t"], top_k=5, n_ivf_probe=4, n_full_scores=64)
     with pytest.raises(NotImplementedError):
         tengine.search_core(index["dev_t"], q, None, approx_mode="tokens", **base)
-    with pytest.raises(NotImplementedError):
-        tengine.search_core(index["dev_t"], q, None, want_tokens=True, **base)
-    with pytest.raises(NotImplementedError):
-        tengine.search_core(index["dev_t"], q, torch.zeros((10, 4), dtype=torch.int32), **base)
+    _, _, tok, lens = tengine.search_core(index["dev_t"], q, None, want_tokens=True, **base)
+    assert tok.shape == (q.shape[0], 5, index["spec_t"].doc_cap, q.shape[1])
+    assert lens.shape == (q.shape[0], 5) and (lens > 0).all()
+    sub = torch.arange(40, dtype=torch.int32).reshape(10, 4)
+    ids, _ = tengine.search_core(index["dev_t"], q, sub, **base)
+    assert all(set(r[r >= 0].tolist()) <= set(s.tolist()) for r, s in zip(ids, sub))
 
 
 def test_policy_functions_match_jax(index):

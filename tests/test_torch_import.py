@@ -14,7 +14,9 @@ names = [m.name for m in pkgutil.walk_packages(
     fast_plaid_tpu_torch.__path__, "fast_plaid_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
-for name in ("ops.q4cache", "ops.rerank_dedup", "ops.rerank_kernel", "search.load"):
+for name in ("ops.q4cache", "ops.rerank_dedup", "ops.rerank_kernel", "search.load",
+             "filtering", "filtering.filtering", "index.appender", "index.deleter",
+             "search.update"):
     assert "fast_plaid_tpu_torch." + name in names, name
 bad = [m for m in sys.modules if m == "fast_plaid_tpu" or m.startswith("fast_plaid_tpu.")]
 assert not bad, bad
@@ -35,5 +37,5 @@ def test_port_imports_without_jax():
     )
     assert out.returncode == 0, out.stderr
     # every module of the slices: ops (q4cache and rerank_dedup among them),
-    # index, search, utils
-    assert int(out.stdout.strip().splitlines()[-1]) >= 20
+    # index (appender, deleter), search (update), filtering, utils
+    assert int(out.stdout.strip().splitlines()[-1]) >= 25
