@@ -16,7 +16,11 @@ Phases, each of which raises (non-zero exit) on failure:
    main path's overlap; one pid for every slot, runs of exactly G and G + 1,
    all sentinel), the dedup kernel against the per-query kernel as well.
    The three rerank kernels also at the direct-subset pool's ragged widths
-   R 8, 24, 256 and 3,608 (sorted pids, sentinel tail).
+   R 8, 24, 256 and 3,608 (sorted pids, sentinel tail); kernels 2 and 3 at
+   doc_cap 336, 1,040 and 2,048 (ragged lengths with 0, <= caph and
+   doc_cap, sentinel and out-of-range pids). Each timed kernel prints its
+   ms, GB/s on two byte counts (every slot's rows; each distinct row once),
+   its bound and the share of it; the build prints ptxas's registers.
 3. The device-resident path: ``FastPlaid(index, device="cuda",
    low_memory=False).create(docs, metadata=...)`` over a synthetic corpus
    (unit-norm tokens, lengths uniform in [80, 160], d=128, seeded; metadata
@@ -52,8 +56,17 @@ Phases, each of which raises (non-zero exit) on failure:
    centroids), and ``delete`` of 1,000 documents, each followed by planted
    probes at the documents' new ids and by the metadata's ``where``; last,
    the index reopened resident.
-7. Print the kernels' JSON record, then the contract line
+7. Long documents: 4,096 documents of 1,000 to 1,030 tokens (doc_cap
+   1,040, as ColPali's ~1,030 patch vectors a page), d 128, seeded, through
+   ``create`` and ``search`` on the resident instance (stage 6 is kernel 2:
+   the pool is dedup-viable but the dedup kernel's rows do not fit a block)
+   and on the default constructor (kernel 3 prefilters). Planted hit@1
+   1.0, the kernel's counter risen, one tile's kernel path = plain path.
+8. Print the kernels' JSON record, then the contract line
    ``{"ok": true, "device": {...}}`` as the last line.
+
+Every tile timed per path also gets its device time by kernel
+(torch.profiler).
 
 A "search failed" RuntimeWarning (a tile whose device work raised, a failed
 kernel launch included) is an error for the whole run.
@@ -126,6 +139,57 @@ def check_close(got, want, what: str) -> float:
     return err
 
 
+# The card's published peaks (NVIDIA H100 SXM data sheet, at 700 W): HBM3 bytes
+# a second, dense bf16 tensor-core and float32 (non-tensor) operations a second.
+HBM_BPS, BF16_OPS, F32_OPS = 3.35e12, 989e12, 67e12
+
+
+def bound(nbytes: float, ops: float, peak_ops: float) -> tuple[float, str]:
+    """The least time (ms) the card could take: bytes over the memory rate or
+    operations over the peak rate, whichever is larger, and which it was."""
+    t_b, t_o = nbytes / HBM_BPS, ops / peak_ops
+    return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
+
+
+def rerank_work(pids, lens, queries, n_docs: int, cap: int, d: int, q4_half: int = 0) -> dict:
+    """What the rerank function needs on these inputs. Each distinct
+    document's rows are read once, as many as the longest length asked of it
+    (bf16: len rows of 2D bytes, out-of-range pids empty; q4: min(len, caph)
+    packed rows of D bytes plus a scale, pids clamped); pids, lens and
+    queries are read once and the [B, R] scores written once; every valid
+    token of every slot costs 2 * Q * D operations. ``slot_row_bytes`` counts
+    the rows of every slot, as a kernel without reuse reads them."""
+    import torch
+
+    if q4_half:
+        p = pids.clamp(0, n_docs - 1).long()
+        ntok = lens.clamp(0, cap)
+        rows, row_bytes = ntok.clamp(max=q4_half), d
+    else:
+        ok = (pids >= 0) & (pids < n_docs)
+        p = torch.where(ok, pids, 0).long()
+        ntok = torch.where(ok, lens.clamp(0, cap), 0)
+        rows, row_bytes = ntok, 2 * d
+    per_doc = torch.zeros(n_docs, dtype=torch.int64, device=pids.device)
+    per_doc.scatter_reduce_(0, p.reshape(-1), rows.reshape(-1).long(), "amax")
+    distinct = int(per_doc.sum()) * row_bytes
+    if q4_half:
+        distinct += 4 * int((per_doc > 0).sum())
+    io = pids.numel() * 12 + queries.shape[0] * queries.shape[1] * d * 2
+    ops = 2 * queries.shape[1] * d * int(ntok.sum())
+    ms, by = bound(distinct + io, ops, BF16_OPS)
+    return {"distinct_row_bytes": distinct, "slot_row_bytes": int(rows.sum()) * row_bytes,
+            "ops": ops, "bound_ms": ms, "bound_by": by}
+
+
+def add_rates(rec: dict, work: dict) -> None:
+    """GB/s on both byte counts and the share of the bound, beside ms."""
+    rec.update(work)
+    rec["GBps_slot_rows"] = work["slot_row_bytes"] / rec["ms"] / 1e6
+    rec["GBps_distinct_rows"] = work["distinct_row_bytes"] / rec["ms"] / 1e6
+    rec["share_of_bound"] = work["bound_ms"] / rec["ms"]
+
+
 def check_estimate(pid, own, tbl, name: str, timing: bool = False) -> dict:
     import torch
 
@@ -144,8 +208,11 @@ def check_estimate(pid, own, tbl, name: str, timing: bool = False) -> dict:
     if timing:
         rec["ms"] = cuda_time_ms(lambda: segmented_estimate(pid, own, tbl), 20)
         rec["plain_ms"] = cuda_time_ms(lambda: segmented_estimate_plain(pid, own, tbl), 3)
-        # Bytes the kernel must move: pid + own read, out written (4 B each).
-        rec["kernel_GBps"] = pid.numel() * 12 / rec["ms"] / 1e6
+        # Bytes the function needs: pid + own read, out written (4 B each), the
+        # table read once; a max per query token of every slot.
+        nbytes = pid.numel() * 12 + tbl.numel() * tbl.element_size()
+        rec["kernel_GBps"] = nbytes / rec["ms"] / 1e6
+        rec["bound_ms"], rec["bound_by"] = bound(nbytes, pid.numel() * tbl.shape[2], F32_OPS)
     log(f"# estimate {json.dumps(rec)}")
     return rec
 
@@ -176,10 +243,7 @@ def check_rerank(emb, pids, lens, qs, name: str, timing: bool = False) -> dict:
         rec["plain_ms"] = cuda_time_ms(
             lambda: maxsim_gather_scores_plain(emb, pids, lens, qs), 2
         )
-        # Bytes the kernel must move: the valid rows of every candidate.
-        ok = (pids >= 0) & (pids < emb.shape[0])
-        rows = torch.where(ok, lens.clamp(0, emb.shape[1]), 0).sum().item()
-        rec["kernel_GBps"] = rows * emb.shape[2] * 2 / rec["ms"] / 1e6
+        add_rates(rec, rerank_work(pids, lens, qs, emb.shape[0], emb.shape[1], emb.shape[2]))
     log(f"# rerank {json.dumps(rec)}")
     return rec
 
@@ -213,9 +277,8 @@ def check_q4(emb_q4, scale, pids, lens, qs, name: str, timing: bool = False) -> 
         rec["plain_ms"] = cuda_time_ms(
             lambda: maxsim_q4_gather_scores_plain(emb_q4, scale, pids, lens, qs), 2
         )
-        # Bytes the kernel must move: min(len, caph) packed rows of D bytes.
-        rows = int(lens.clamp(0, caph).sum().item())
-        rec["kernel_GBps"] = rows * emb_q4.shape[1] / rec["ms"] / 1e6
+        add_rates(rec, rerank_work(pids, lens, qs, scale.shape[0], 2 * caph, emb_q4.shape[1],
+                                   q4_half=caph))
     log(f"# q4 {json.dumps(rec)}")
     return rec
 
@@ -259,6 +322,7 @@ def check_dedup(emb, pids, lens, qs, name: str, timing: bool = False) -> dict:
         rec["plain_ms"] = cuda_time_ms(
             lambda: maxsim_gather_scores_dedup_plain(emb, pids, lens, qs), 2
         )
+        add_rates(rec, rerank_work(pids, lens, qs, emb.shape[0], emb.shape[1], emb.shape[2]))
     log(f"# dedup {json.dumps(rec)}")
     return rec
 
@@ -358,6 +422,30 @@ def phase_kernels(dev: "torch.device", n_docs: int) -> None:
     if rec["empty_rows"] < 5:
         raise AssertionError("q4 edge case: zero-length rows did not score -inf")
 
+    # Long documents: kernels 2 and 3 stream 64-row tiles, so any doc_cap.
+    # Ragged lengths over [0, doc_cap] with 0, 1, 63-65, caph +- 1 and doc_cap
+    # spelled out, one row of lengths <= caph, one of doc_cap, sentinel and
+    # out-of-range pids; doc_cap 1,040 (ColPali's ~1,030 patches a page) timed.
+    for cap in (336, 1040, 2048):
+        n_l, b_l, r_l = 2000, 64, 256
+        caph_l = cap // 2
+        p_l = torch.randint(0, n_l, (b_l, r_l), generator=g, device=dev, dtype=torch.int32)
+        l_l = torch.randint(0, cap + 1, (b_l, r_l), generator=g, device=dev, dtype=torch.int32)
+        edge = [0, 1, 63, 64, 65, caph_l - 1, caph_l, caph_l + 1, cap - 1, cap]
+        l_l[0, : len(edge)] = torch.tensor(edge, dtype=torch.int32, device=dev)
+        l_l[1] = torch.randint(1, caph_l + 1, (r_l,), generator=g, device=dev, dtype=torch.int32)
+        l_l[2] = cap
+        p_l[3, :4] = torch.tensor([-1, n_l, n_l + 5000, n_l - 1], dtype=torch.int32, device=dev)
+        emb_l = torch.randn((n_l, cap, DIM), generator=g, device=dev).to(torch.bfloat16)
+        rec = check_rerank(emb_l, p_l, l_l, qs[:b_l], f"long_doc_cap{cap}", timing=cap == 1040)
+        if rec["empty_rows"] < 4:
+            raise AssertionError(f"doc_cap {cap}: empty / out-of-range rows did not score -inf")
+        del emb_l
+        q4_l = torch.randint(0, 256, (n_l * caph_l, DIM), generator=g, device=dev).to(torch.uint8)
+        sc_l = torch.rand((n_l,), generator=g, device=dev) + 0.05
+        check_q4(q4_l, sc_l, p_l, l_l, qs[:b_l], f"long_doc_cap{cap}", timing=cap == 1040)
+        del q4_l
+
     # Dedup edges: one pid for every slot, runs of exactly G and G + 1, all
     # sentinel (doc_cap 48, Q 16).
     emb_d = torch.randn((301, 48, DIM), generator=g, device=dev).to(torch.bfloat16)
@@ -377,10 +465,11 @@ def phase_kernels(dev: "torch.device", n_docs: int) -> None:
             raise AssertionError("dedup all-sentinel rows did not score -inf")
 
 
-def planted_corpus(n_docs: int, seed: int):
-    """Unit-norm tokens, lengths uniform in [80, 160]; one flat array."""
+def planted_corpus(n_docs: int, seed: int, lo: int = 80, hi: int = 160):
+    """Unit-norm tokens, lengths uniform in [lo, hi]; one flat array."""
     rng = np.random.default_rng(seed)
-    lens = rng.integers(80, 161, size=n_docs)
+    lens = rng.integers(lo, hi + 1, size=n_docs)
+    lens[0] = hi  # the longest length is always present: doc_cap is fixed
     total = int(lens.sum())
     flat = np.empty((total, DIM), np.float32)
     block = 1 << 20
@@ -433,7 +522,8 @@ class Counters:
         return {name: fn.launches for name, fn in self.fns.items()}
 
 
-def api_search(fp, queries, counters, n_queries, probe_pids, label, need) -> dict:
+def api_search(fp, queries, counters, n_queries, probe_pids, label, need,
+               expect_cells: bool = True) -> dict:
     """One timed ``FastPlaid.search`` of every query: launch counts read
     around it, QPS, planted hit@1 (must be 1.0), no empty result."""
     import torch
@@ -452,7 +542,7 @@ def api_search(fp, queries, counters, n_queries, probe_pids, label, need) -> dic
     stats = last_search_stats()
     log(f"# [{label}] search: {len(queries)} queries in {search_s:.3f} s = "
         f"{len(queries) / search_s:.1f} QPS; launches {launches}; stats {stats}")
-    if stats["approx_mode"] != "cells" or stats["rank_admit"] < 1:
+    if expect_cells and (stats["approx_mode"] != "cells" or stats["rank_admit"] < 1):
         raise AssertionError(f"{label}: expected cells with rank_admit >= 1, got {stats}")
     for name in need:
         if launches[name] < 1:
@@ -515,7 +605,28 @@ def tile_latency(run, label: str, n: int = 30) -> tuple[float, float]:
     p50, p99 = (float(np.percentile(lat, p)) for p in (50, 99))
     log(f"# [{label}] 256-query tile latency over {n} tiles: p50 {p50:.3f} ms, "
         f"p99 {p99:.3f} ms")
+    device_profile(run, label)
     return p50, p99
+
+
+def device_profile(run, label: str, top: int = 8) -> None:
+    """Device time of one tile by kernel (torch.profiler, CUPTI)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+
+    def dev_ms(e):
+        return (getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)) / 1e3
+
+    evs = [e for e in prof.key_averages() if getattr(e, "device_type", None) == DeviceType.CUDA]
+    evs.sort(key=dev_ms, reverse=True)
+    total = sum(dev_ms(e) for e in evs)
+    items = "; ".join(f"{e.key[:60]} x{e.count} {dev_ms(e):.3f}" for e in evs[:top])
+    log(f"# [{label}] device time of one tile {total:.3f} ms; largest: {items}")
 
 
 class Recorder:
@@ -1172,6 +1283,96 @@ def phase_mutable(dev, index_dir, docs, queries, n_queries, probe_pids, counters
     return out
 
 
+def phase_long_docs(dev, counters, seed: int, n_docs: int = 4096) -> dict:
+    """Phase 7: long documents through the API. 4,096 documents of 1,000 to
+    1,030 unit-norm tokens (doc_cap 1,040, as ColPali's ~1,030 patch vectors
+    a page), d 128, seeded. The resident instance's stage 6 is kernel 2: the
+    pool is dedup-viable but the dedup kernel's rows do not fit a block. The
+    default constructor's q4 prefilter is kernel 3. Each: planted hit@1 1.0,
+    the kernel's counter risen, one tile's kernel path = plain path."""
+    import torch
+
+    from fast_plaid_tpu_torch.ops.rerank_dedup import dedup_fits, dedup_viable
+    from fast_plaid_tpu_torch.search import FastPlaid, engine, searcher
+
+    t0 = time.perf_counter()
+    docs, rng = planted_corpus(n_docs, seed + 21, lo=1000, hi=1030)
+    probe_pids = rng.integers(0, n_docs, 64)
+    rand_q = rng.standard_normal((256, Q_LEN, DIM), dtype=np.float32)
+    rand_q /= np.linalg.norm(rand_q, axis=-1, keepdims=True)
+    queries = np.concatenate([rand_q, np.stack([docs[p][:Q_LEN] for p in probe_pids])])
+    index_dir = os.path.join(ROOT, "build", "chip_smoke_long_index")
+    shutil.rmtree(index_dir, ignore_errors=True)
+    out: dict = {}
+    try:
+        fp = FastPlaid(index_dir, device=str(dev), low_memory=False)
+        fp.create(docs, show_progress=False)
+        torch.cuda.synchronize()
+        out["create_s"] = time.perf_counter() - t0
+        loaded = fp.indices[str(dev)]
+        ispec = loaded.ispec
+        cap = ispec.doc_cap
+        viable = dedup_viable(loaded.dev.emb_cache.shape[0], 256, N_FULL // 2, Q_LEN, DIM)
+        fits = dedup_fits(cap, DIM, Q_LEN)
+        log(f"# [long docs] {n_docs} docs, {sum(len(d) for d in docs)} tokens, corpus + "
+            f"create {out['create_s']:.2f} s; {ispec}; dedup_viable={viable}, "
+            f"dedup_fits={fits}")
+        if cap != 1040 or not viable or fits:
+            raise AssertionError(f"long docs: doc_cap {cap}, viable {viable}, fits {fits}")
+        res = api_search(fp, queries, counters, 256, probe_pids, "long docs, resident",
+                         ("maxsim_gather_scores",), expect_cells=False)
+        if res["launches"]["maxsim_gather_scores_dedup"]:
+            raise AssertionError("long docs: the dedup kernel ran past its layout")
+        kw = engine_kwargs(loaded, fp.mem_budget)
+        tile = torch.from_numpy(queries[:256].astype(np.float16)).to(dev)
+
+        def res_tile(k):
+            return engine.search_impl(loaded.dev, tile, None, use_estimate_kernel=k,
+                                      use_rerank_kernel=k, **kw)
+
+        res["diff"], _ = compare_tile("long docs, resident", res_tile)
+        res["tile_ms"] = tile_latency(lambda: res_tile(True), "long docs, resident", n=10)
+        with Recorder(engine, "maxsim_gather_scores") as rec:
+            with torch.inference_mode():
+                res_tile(True)
+        res["rr"] = check_rerank(*rec.args, "long_docs_main_path_inputs", timing=True)
+        out["resident"] = res
+        fp.close()
+        torch.cuda.empty_cache()
+
+        fp = FastPlaid(index_dir, device=str(dev))
+        lm = fp.indices[str(dev)]
+        if not lm.low_memory or lm.dev.emb_q4 is None:
+            raise AssertionError("long docs: the default constructor is not low_memory + q4")
+        res = api_search(fp, queries, counters, 256, probe_pids, "long docs, low_memory",
+                         ("maxsim_q4_gather_scores",), expect_cells=False)
+        kw = engine_kwargs(lm, fp.mem_budget)
+
+        def lm_tile(k):
+            p2, stats = searcher._lm_candidates(
+                lm, tile, n_ivf_probe=N_PROBE, n_full_scores=N_FULL, cand_cap=kw["cand_cap"],
+                approx_mode=kw["approx_mode"], slot_budget=kw["slot_budget"],
+                use_estimate_kernel=k, rank_admit=kw["rank_admit"])
+            p2 = engine.q4_prefilter_core(
+                lm.dev, p2, tile, sentinel_pid=lm.ispec.sentinel_pid,
+                pool=engine.rescue_pool(TOP_K), mem_budget=fp.mem_budget, use_kernel=k)
+            rows = searcher.host_gather_rows(lm, p2.cpu().numpy(), pin=True)
+            return searcher._lm_finish(lm, tile, p2, stats, rows, top_k=TOP_K,
+                                       mem_budget=fp.mem_budget)[:2]
+
+        res["diff"], _ = compare_tile("long docs, low_memory", lm_tile)
+        res["tile_ms"] = tile_latency(lambda: lm_tile(True), "long docs, low_memory", n=10)
+        with Recorder(engine, "maxsim_q4_gather_scores") as rec:
+            with torch.inference_mode():
+                lm_tile(True)
+        res["q4"] = check_q4(*rec.args, "long_docs_main_path_inputs", timing=True)
+        out["low_memory"] = res
+        fp.close()
+    finally:
+        shutil.rmtree(index_dir, ignore_errors=True)
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n-docs", type=int, default=57_638)
@@ -1204,8 +1405,12 @@ def main() -> None:
     build_s = time.perf_counter() - t0
     info = _build.build_info()
     for line in info["log"].splitlines():
-        if "registers" in line or "smem" in line or "spill" in line:
+        if any(k in line for k in ("Compiling entry", "registers", "smem", "spill")):
             log(f"# ptxas: {line.strip()}")
+    lib = _build.load_library()
+    log(f"# dynamic shared memory a block (D {DIM}, Q {Q_LEN}; any doc_cap): kernel 2 "
+        f"{lib.fp_maxsim_gather_smem_bytes(DIM, Q_LEN)} B, kernel 3 "
+        f"{lib.fp_maxsim_q4_gather_smem_bytes(DIM, Q_LEN)} B")
     log(f"# kernels built in {build_s:.2f} s: {info['path']}")
 
     phase_kernels(dev, args.n_docs)
@@ -1239,6 +1444,9 @@ def main() -> None:
                                 counters, args.seed)
     finally:
         shutil.rmtree(index_dir, ignore_errors=True)
+    del docs
+    torch.cuda.empty_cache()
+    long_res = phase_long_docs(dev, counters, args.seed)
 
     for label, r in (("resident (dedup stage 6)", main_res),
                      ("resident, dedup off (per-query stage 6)", k2_res),
@@ -1247,6 +1455,11 @@ def main() -> None:
         log(f"# summary [{label}]: {r['qps']:.1f} API QPS (top_k {TOP_K}, 256-query "
             f"tiles), tile p50/p99 {r['tile_ms'][0]:.3f}/{r['tile_ms'][1]:.3f} ms, "
             f"planted hit@1 {r['hit1']}, on {smi}")
+    for label, r in (("long docs, resident (kernel 2 stage 6)", long_res["resident"]),
+                     ("long docs, low_memory + q4 prefilter", long_res["low_memory"])):
+        log(f"# summary [{label}]: {r['qps']:.1f} API QPS, tile p50/p99 "
+            f"{r['tile_ms'][0]:.3f}/{r['tile_ms'][1]:.3f} ms, planted hit@1 {r['hit1']}, "
+            f"kernel = plain up to ties (max diff {r['diff']:.2e}), on {smi}")
     for (path, name), r in mut_res["subsets"].items():
         log(f"# summary [subset {name}, {path}]: {r['qps']:.1f} API QPS ({r['s']:.3f} s, host "
             f"subset preparation {r['prep_s']:.3f} s), one tile {r['tile_ms']:.3f} ms, planted "
@@ -1263,47 +1476,27 @@ def main() -> None:
         f"open {lm_res['load_s']:.2f} s, q4 tier open {q4_res['load_s']:.2f} s, "
         f"host gather {lm_res['gather_ms']:.3f} ms/tile")
 
+    def kernel(name, source, replaces, launches, rec):
+        # library_ms is None for all four: no single PyTorch call gathers rows
+        # by index and reduces a length-masked (or run-segmented) max.
+        return {"name": name, "route": "cuda", "source": f"fast_plaid_tpu_torch/csrc/{source}",
+                "replaces": replaces, "launches": launches,
+                **{k: rec[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
+                "library_ms": None}
+
     kernels = [
-        {
-            "name": "segmented_estimate",
-            "route": "cuda",
-            "source": "fast_plaid_tpu_torch/csrc/estimate_kernel.cu",
-            "replaces": "fast_plaid_tpu/ops/estimate_kernel.py:46",
-            "launches": main_res["launches"]["segmented_estimate"],
-            "max_abs_err": main_res["est"]["max_abs_err"],
-            "ms": main_res["est"]["ms"],
-            "plain_ms": main_res["est"]["plain_ms"],
-        },
-        {
-            "name": "maxsim_gather_scores",
-            "route": "cuda",
-            "source": "fast_plaid_tpu_torch/csrc/rerank_kernel.cu",
-            "replaces": "fast_plaid_tpu/ops/rerank_kernel.py:37",
-            "launches": k2_res["launches"]["maxsim_gather_scores"],
-            "max_abs_err": main_res["rr"]["max_abs_err"],
-            "ms": main_res["rr"]["ms"],
-            "plain_ms": main_res["rr"]["plain_ms"],
-        },
-        {
-            "name": "maxsim_q4_gather_scores",
-            "route": "cuda",
-            "source": "fast_plaid_tpu_torch/csrc/q4_rerank_kernel.cu",
-            "replaces": "fast_plaid_tpu/ops/rerank_kernel.py:198",
-            "launches": lm_res["launches"]["maxsim_q4_gather_scores"],
-            "max_abs_err": lm_res["q4"]["max_abs_err"],
-            "ms": lm_res["q4"]["ms"],
-            "plain_ms": lm_res["q4"]["plain_ms"],
-        },
-        {
-            "name": "maxsim_gather_scores_dedup",
-            "route": "cuda",
-            "source": "fast_plaid_tpu_torch/csrc/rerank_dedup_kernel.cu",
-            "replaces": "fast_plaid_tpu/ops/rerank_dedup.py:153",
-            "launches": main_res["launches"]["maxsim_gather_scores_dedup"],
-            "max_abs_err": main_res["dedup"]["max_abs_err"],
-            "ms": main_res["dedup"]["ms"],
-            "plain_ms": main_res["dedup"]["plain_ms"],
-        },
+        kernel("segmented_estimate", "estimate_kernel.cu",
+               "fast_plaid_tpu/ops/estimate_kernel.py:46",
+               main_res["launches"]["segmented_estimate"], main_res["est"]),
+        kernel("maxsim_gather_scores", "rerank_kernel.cu",
+               "fast_plaid_tpu/ops/rerank_kernel.py:37",
+               k2_res["launches"]["maxsim_gather_scores"], main_res["rr"]),
+        kernel("maxsim_q4_gather_scores", "q4_rerank_kernel.cu",
+               "fast_plaid_tpu/ops/rerank_kernel.py:198",
+               lm_res["launches"]["maxsim_q4_gather_scores"], lm_res["q4"]),
+        kernel("maxsim_gather_scores_dedup", "rerank_dedup_kernel.cu",
+               "fast_plaid_tpu/ops/rerank_dedup.py:153",
+               main_res["launches"]["maxsim_gather_scores_dedup"], main_res["dedup"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(

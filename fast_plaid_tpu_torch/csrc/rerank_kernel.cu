@@ -11,198 +11,155 @@
 // zero in the cache (padded codes decompress to a real vector), so the max is
 // masked by len.
 //
-// What bounds it on the H100: memory. Each candidate moves len * D * 2 bytes
-// (up to 40 KB at doc_cap 160, D 128) for 2 * len * Q * D flops, about 32 flops
-// a byte against the card's ~295 bf16 flops a byte: at B = 256, R = 2048 a
-// query tile reads ~21 GB, ~6 ms at 3.35 TB/s, while its ~0.34 TFLOP take
-// ~0.35 ms of tensor-core time.
+// What bounds it on the H100: memory. The function needs each distinct
+// candidate row once: at the main path's pool (B 256, R 2048, lengths 80..160,
+// Q 32, D 128, 57,638 documents) about 1.77 GB, 0.53 ms at 3.35 TB/s, against
+// ~515 GFLOP of products, 0.52 ms at 989 TFLOP/s. Read per slot (no reuse
+// across query rows) the rows are 16.1 GB, 4.8 ms. The first design (one block
+// per 16 candidates, four block barriers and a shared f32 score tile per
+// candidate, shared memory growing with doc_cap) took 17.9 ms and refused
+// doc_cap above 320.
 //
-// Design: one block of 8 warps per (query row b, group of kCandPerBlock
-// candidates). The block stages q_b [Q, D] in shared memory once, then walks its
-// candidates with a two-stage cp.async ring: candidate r + 1's rows (only the
-// first len of them) stream into one buffer while candidate r is contracted from
-// the other. The [len, D] x [D, Q] product runs on the tensor cores through
-// nvcuda::wmma 16x16x16 bf16 tiles with float32 accumulators, stored to a shared
-// [doc_cap, Q] score tile; warps then take the masked max over tokens per query
-// token and the block sums over query tokens. Only [B, R] floats are written.
-// TMA, wgmma and deeper pipelining are later work.
+// Design: the streaming core of csrc/maxsim_stream.cuh. Producer warps copy a
+// candidate's first len rows, 64 at a time, with one cp.async.bulk per row
+// into a 3-4 stage ring per consumer warp (rows padded to 2D + 16 bytes, so
+// ldmatrix reads them without bank conflicts); shared memory depends on D and
+// Q only, never on doc_cap. Consumer warps run mma.sync m16n8k16 with the A
+// fragments from ldmatrix and the query fragments as 32-bit loads from the
+// span's shared query block, mask rows past len in registers and keep the max
+// per query token across tiles. The tensor cores are not the limit: a tile's
+// 128 mma.sync take a few hundred cycles of an SM sub-partition against the
+// ~1,100 cycles an SM's share of HBM needs to bring the tile's 16 KB.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <mma.h>
-#include <stdint.h>
+#include "maxsim_stream.cuh"
 
 namespace {
 
-using namespace nvcuda;
+using namespace fp_stream;
 
-constexpr int kWarps = 8;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kCandPerBlock = 16;
+// Four consumer warps: at D 128 their 3-stage rings fill shared memory.
+constexpr int kMaxWarps = 4;
 
-__device__ __forceinline__ void cp_async16(void* smem_ptr, const void* gmem_ptr) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem_ptr));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem_ptr));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-__device__ __forceinline__ void cp_async_wait_prev() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
-}
-
-struct Layout {
-  int lda;   // bf16 row stride of the q and document tiles (D + 8)
-  int qp;    // Q rounded up to 16
-  int lds;   // float row stride of the score tile (qp + 4)
-  size_t q_off, buf_off, buf_bytes, s_off, red_off, total;
-};
-
-__host__ __device__ inline size_t align128(size_t x) { return (x + 127) & ~size_t(127); }
-
-__host__ __device__ inline Layout make_layout(int doc_cap, int D, int Q) {
-  Layout l;
-  l.lda = D + 8;
-  l.qp = (Q + 15) / 16 * 16;
-  l.lds = l.qp + 4;
-  l.q_off = 0;
-  l.buf_off = align128(static_cast<size_t>(l.qp) * l.lda * 2);
-  l.buf_bytes = align128(static_cast<size_t>(doc_cap) * l.lda * 2);
-  l.s_off = l.buf_off + 2 * l.buf_bytes;
-  l.red_off = l.s_off + align128(static_cast<size_t>(doc_cap) * l.lds * 4);
-  l.total = l.red_off + align128(kWarps * sizeof(float));
-  return l;
-}
-
-__global__ void __launch_bounds__(kThreads)
-maxsim_gather_kernel(const __nv_bfloat16* __restrict__ emb, int n_rows, int doc_cap,
-                     int D, const int32_t* __restrict__ pids,
-                     const int32_t* __restrict__ lens,
-                     const __nv_bfloat16* __restrict__ queries, int R, int Q,
-                     float* __restrict__ out) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const Layout L = make_layout(doc_cap, D, Q);
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem + L.q_off);
-  __nv_bfloat16* buf0 = reinterpret_cast<__nv_bfloat16*>(smem + L.buf_off);
-  __nv_bfloat16* buf1 = reinterpret_cast<__nv_bfloat16*>(smem + L.buf_off + L.buf_bytes);
-  float* S = reinterpret_cast<float*>(smem + L.s_off);
-  float* red = reinterpret_cast<float*>(smem + L.red_off);
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int b = blockIdx.y;
-  const int r0 = blockIdx.x * kCandPerBlock;
-  const int r1 = min(r0 + kCandPerBlock, R);
-  const int vecs = D / 8;  // 16-byte vectors per row
-
-  // q_b -> shared, zero rows Q..qp-1.
-  for (int idx = tid; idx < L.qp * vecs; idx += kThreads) {
-    const int row = idx / vecs, c8 = idx % vecs;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (row < Q) {
-      v = reinterpret_cast<const uint4*>(
-          queries + (static_cast<int64_t>(b) * Q + row) * D)[c8];
-    }
-    *reinterpret_cast<uint4*>(qs + row * L.lda + c8 * 8) = v;
-  }
-
-  auto valid_len = [&](int r) -> int {
-    const int64_t k = static_cast<int64_t>(b) * R + r;
-    const int32_t pid = pids[k];
-    if (pid < 0 || pid >= n_rows) return 0;
-    return min(max(static_cast<int>(lens[k]), 0), doc_cap);
-  };
-  auto issue = [&](int r, __nv_bfloat16* buf) {
-    const int n = valid_len(r);
-    if (n == 0) return;
-    const int64_t pid = pids[static_cast<int64_t>(b) * R + r];
-    const __nv_bfloat16* src = emb + pid * doc_cap * static_cast<int64_t>(D);
-    for (int c = tid; c < n * vecs; c += kThreads) {
-      const int row = c / vecs, c8 = c % vecs;
-      cp_async16(buf + row * L.lda + c8 * 8, src + static_cast<int64_t>(row) * D + c8 * 8);
-    }
-  };
-
-  if (r0 < r1) issue(r0, buf0);
-  cp_async_commit();
-  const int n_qt = L.qp / 16;
-  for (int r = r0; r < r1; ++r) {
-    const int cur = (r - r0) & 1;
-    if (r + 1 < r1) issue(r + 1, cur ? buf0 : buf1);
-    cp_async_commit();
-    cp_async_wait_prev();  // candidate r's rows have landed (this thread's copies)
-    __syncthreads();       // ... and everyone's, and q_b on the first pass
-
-    const int n = valid_len(r);
-    if (n == 0) {
-      if (tid == 0) out[static_cast<int64_t>(b) * R + r] = -INFINITY;
-    } else {
-      const __nv_bfloat16* A = cur ? buf1 : buf0;
-      const int tiles = ((n + 15) / 16) * n_qt;
-      for (int tile = warp; tile < tiles; tile += kWarps) {
-        const int mt = tile / n_qt, nt = tile % n_qt;
-        wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-        wmma::fill_fragment(acc, 0.0f);
-        for (int kk = 0; kk < D; kk += 16) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa;
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> fb;
-          wmma::load_matrix_sync(fa, A + mt * 16 * L.lda + kk, L.lda);
-          wmma::load_matrix_sync(fb, qs + nt * 16 * L.lda + kk, L.lda);
-          wmma::mma_sync(acc, fa, fb, acc);
-        }
-        wmma::store_matrix_sync(S + mt * 16 * L.lds + nt * 16, acc, L.lds,
-                                wmma::mem_row_major);
-      }
-      __syncthreads();
-      // Rows t >= n of the score tile hold garbage (stale or unloaded rows)
-      // and are never read: the loop below stops at n.
-      float part = 0.f;
-      for (int q = warp; q < Q; q += kWarps) {
-        float mx = -INFINITY;
-        for (int t = lane; t < n; t += 32) mx = fmaxf(mx, S[t * L.lds + q]);
+// Fold one [64, D] bf16 tile (rows t0.., the first `rows - t0` valid) into
+// the running maxima of the NT * 8 query columns.
+template <int NT>
+__device__ __forceinline__ void bf16_tile(const unsigned char* A, const unsigned char* qs,
+                                          const Layout& L, int D, int t0, int rows,
+                                          float (*mx)[2]) {
+  constexpr int MS = NT <= 4 ? 4 : 2;  // m16 slices per pass (accumulator registers)
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int lim = rows - t0;  // valid rows of this tile
+  const int KT = D / 16;
 #pragma unroll
-        for (int off = 16; off > 0; off >>= 1)
-          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-        part += mx;
+  for (int mp = 0; mp < 4 / MS; ++mp) {
+    if (mp * MS * 16 >= lim) break;
+    float acc[MS][NT][4];
+#pragma unroll
+    for (int m = 0; m < MS; ++m)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[m][j][e] = 0.f;
+#pragma unroll 2
+    for (int kb = 0; kb < KT; ++kb) {
+      uint32_t bq[NT][2];
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const unsigned char* qrow = qs + (j * 8 + g) * L.q_stride + kb * 32 + t * 4;
+        bq[j][0] = *reinterpret_cast<const uint32_t*>(qrow);
+        bq[j][1] = *reinterpret_cast<const uint32_t*>(qrow + 16);
       }
-      if (lane == 0) red[warp] = part;
-      __syncthreads();
-      if (tid == 0) {
-        float s = 0.f;
-        for (int w = 0; w < kWarps; ++w) s += red[w];
-        out[static_cast<int64_t>(b) * R + r] = s;
+#pragma unroll
+      for (int m = 0; m < MS; ++m) {
+        const int m16 = (mp * MS + m) * 16;
+        if (m16 < lim) {
+          uint32_t a[4];
+          ldmatrix_x4(a, A + (m16 + (lane & 15)) * L.a_stride + kb * 32 + (lane >> 4) * 16);
+#pragma unroll
+          for (int j = 0; j < NT; ++j) mma_bf16(acc[m][j], a, bq[j][0], bq[j][1]);
+        }
       }
     }
-    __syncthreads();  // buffers, S and red are reused by the next candidate
+#pragma unroll
+    for (int m = 0; m < MS; ++m) fold_max<NT>(mx, acc[m], (mp * MS + m) * 16 + g, lim);
   }
+}
+
+template <int NT>
+__global__ void __launch_bounds__(64 * kMaxWarps, 1)
+maxsim_gather_kernel(const __nv_bfloat16* __restrict__ emb, int n_rows, int doc_cap, int D,
+                     const int32_t* __restrict__ pids, const int32_t* __restrict__ lens,
+                     const __nv_bfloat16* __restrict__ queries, int B, int R, int Q,
+                     float* __restrict__ out, Layout L) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  init_block(smem, L);
+  const int warp = threadIdx.x >> 5;
+  auto rows_of = [=](int pid, int len, long long* doc) -> int {
+    *doc = pid;
+    if (pid < 0 || pid >= n_rows) return 0;
+    return min(max(len, 0), doc_cap);
+  };
+  if (warp >= L.warps) {
+    const Source src{reinterpret_cast<const unsigned char*>(emb), doc_cap, D * 2};
+    produce(smem, L, warp - L.warps, src, pids, lens, queries, B, R, Q, D, rows_of);
+  } else {
+    auto tile = [&](const unsigned char* A, const unsigned char* qs, int t0, int rows, int,
+                    float (*mx)[2]) { bf16_tile<NT>(A, qs, L, D, t0, rows, mx); };
+    auto finish = [](long long, float s) { return s; };
+    consume<NT>(smem, L, warp, pids, lens, B, R, Q, out, rows_of, tile, finish);
+  }
+}
+
+bool layout_for(int D, int Q, Layout* L) {
+  return choose_layout(Q, 2 * D + 16, 2 * D + 16, kMaxWarps, L);
+}
+
+template <int NT>
+int launch(const void* emb, int n_rows, int doc_cap, int D, const void* pids, const void* lens,
+           const void* queries, int B, int R, int Q, void* out, cudaStream_t stream,
+           const Layout& L) {
+  auto kernel = maxsim_gather_kernel<NT>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L.total);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int span = kSpanPerWarp * L.warps;
+  const int n_spans = B * ((R + span - 1) / span);
+  int status = 0;
+  const int grid = grid_size(kernel, L, n_spans, &status);
+  if (status != 0) return status;
+  kernel<<<grid, 64 * L.warps, L.total, stream>>>(
+      static_cast<const __nv_bfloat16*>(emb), n_rows, doc_cap, D,
+      static_cast<const int32_t*>(pids), static_cast<const int32_t*>(lens),
+      static_cast<const __nv_bfloat16*>(queries), B, R, Q, static_cast<float*>(out), L);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Shared-memory bytes one block needs for this shape (the wrapper checks it).
-extern "C" long long fp_maxsim_gather_smem_bytes(int doc_cap, int D, int Q) {
-  return static_cast<long long>(make_layout(doc_cap, D, Q).total);
+// Shared-memory bytes one block uses for D and Q (<= 64), or -1 if no plan
+// fits. It does not depend on doc_cap.
+extern "C" long long fp_maxsim_gather_smem_bytes(int D, int Q) {
+  Layout L;
+  return layout_for(D, Q, &L) ? static_cast<long long>(L.total) : -1;
 }
 
 // emb: [n_rows, doc_cap, D] bf16; pids, lens: [B, R] int32; queries: [B, Q, D]
-// bf16; out: [B, R] float32. doc_cap and D multiples of 16. Returns
-// cudaGetLastError() after the launch (0 on success).
+// bf16 with 1 <= Q <= 64; out: [B, R] float32. D a multiple of 16, pointers
+// 16-byte aligned. Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int fp_maxsim_gather(const void* emb, int n_rows, int doc_cap, int D,
-                                const void* pids, const void* lens,
-                                const void* queries, int B, int R, int Q, void* out,
-                                void* stream) {
+                                const void* pids, const void* lens, const void* queries,
+                                int B, int R, int Q, void* out, void* stream) {
   if (B == 0 || R == 0) return 0;
-  const size_t smem = make_layout(doc_cap, D, Q).total;
-  cudaError_t err = cudaFuncSetAttribute(maxsim_gather_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((R + kCandPerBlock - 1) / kCandPerBlock, B);
-  maxsim_gather_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(emb), n_rows, doc_cap, D,
-      static_cast<const int32_t*>(pids), static_cast<const int32_t*>(lens),
-      static_cast<const __nv_bfloat16*>(queries), R, Q, static_cast<float*>(out));
-  return static_cast<int>(cudaGetLastError());
+  Layout L;
+  if (Q < 1 || Q > kMaxQ || D % 16 || !layout_for(D, Q, &L)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (n_tiles_for(Q)) {
+    case 1: return launch<1>(emb, n_rows, doc_cap, D, pids, lens, queries, B, R, Q, out, s, L);
+    case 2: return launch<2>(emb, n_rows, doc_cap, D, pids, lens, queries, B, R, Q, out, s, L);
+    case 4: return launch<4>(emb, n_rows, doc_cap, D, pids, lens, queries, B, R, Q, out, s, L);
+    default: return launch<8>(emb, n_rows, doc_cap, D, pids, lens, queries, B, R, Q, out, s, L);
+  }
 }

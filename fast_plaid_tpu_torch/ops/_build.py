@@ -1,8 +1,9 @@
 """Build and load the CUDA kernels of this package.
 
 The ``.cu`` sources under ``fast_plaid_tpu_torch/csrc/`` are compiled with
-nvcc for ``sm_90a`` into one shared library with a plain C interface and
-loaded through ctypes. The build happens at first use, from the sources in
+nvcc for ``sm_90a``, one nvcc process per source, all started together, and
+linked into one shared library with a plain C interface, loaded through
+ctypes. The build happens at first use, from the sources in
 the checkout only, into ``build/fast_plaid_tpu_torch/<hash>/`` beside the
 package (``FASTPLAID_TORCH_BUILD_DIR`` overrides the root). The directory
 is keyed by a hash of the sources and the flags, and a file lock keeps
@@ -30,7 +31,6 @@ _FLAGS = [
     "-std=c++17",
     "-O3",
     "-lineinfo",
-    "-shared",
     "-Xcompiler",
     "-fPIC",
     "-Xptxas",
@@ -51,10 +51,10 @@ _SIGNATURES = {
     "fp_segmented_estimate_scratch_words": ([_I, _I, _I], ctypes.c_longlong),
     # (emb, n_rows, doc_cap, D, pids, lens, queries, B, R, Q, out, stream)
     "fp_maxsim_gather": ([_P, _I, _I, _I, _P, _P, _P, _I, _I, _I, _P, _P], _I),
-    "fp_maxsim_gather_smem_bytes": ([_I, _I, _I], ctypes.c_longlong),
+    "fp_maxsim_gather_smem_bytes": ([_I, _I], ctypes.c_longlong),  # (D, Q)
     # (emb_q4, scale, n_docs, caph, D, pids, lens, queries, B, R, Q, out, stream)
     "fp_maxsim_q4_gather": ([_P, _P, _I, _I, _I, _P, _P, _P, _I, _I, _I, _P, _P], _I),
-    "fp_maxsim_q4_gather_smem_bytes": ([_I, _I, _I], ctypes.c_longlong),
+    "fp_maxsim_q4_gather_smem_bytes": ([_I, _I], ctypes.c_longlong),  # (D, Q)
     # (emb, n_rows, doc_cap, D, epid, elen, ecnt, eqidx, n_entries, E, queries,
     #  Q, G, out, stream)
     "fp_maxsim_dedup": (
@@ -88,6 +88,38 @@ def _sources() -> list[Path]:
     return sorted(p for p in _CSRC.iterdir() if p.suffix in (".cu", ".cuh"))
 
 
+def _compile(sources: list[Path], out_dir: Path, lib_path: Path, log_path: Path) -> None:
+    """One ``nvcc -c`` per ``.cu``, run in parallel, then one link."""
+    nvcc = _nvcc()
+    cus = [s for s in sources if s.suffix == ".cu"]
+    objs = [out_dir / f"{s.stem}.{os.getpid()}.o" for s in cus]
+    cmds = [
+        [nvcc, *_FLAGS, "-c", "-o", str(o), str(s)] for s, o in zip(cus, objs)
+    ]
+    procs = [
+        subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for c in cmds
+    ]
+    outs = [p.communicate()[0] for p in procs]
+    tmp = out_dir / f".{_LIB_NAME}.{os.getpid()}.tmp"
+    link = [nvcc, *_FLAGS, "-shared", "-o", str(tmp), *[str(o) for o in objs]]
+    failed = [(c, o) for c, o, p in zip(cmds, outs, procs) if p.returncode != 0]
+    if not failed:
+        proc = subprocess.run(link, capture_output=True, text=True, check=False)
+        if proc.returncode != 0:
+            failed = [(link, proc.stdout + proc.stderr)]
+    log_path.write_text(
+        "".join(" ".join(c) + "\n" + o for c, o in zip(cmds, outs)) + " ".join(link) + "\n"
+    )
+    for o in objs:
+        o.unlink(missing_ok=True)
+    if failed:
+        cmd, out = failed[0]
+        msg = f"nvcc failed: {' '.join(cmd)}\n{out}"
+        raise RuntimeError(msg)
+    os.replace(tmp, lib_path)
+
+
 def build_info() -> dict:
     """The loaded library's path and the compiler output of its build."""
     return dict(_info)
@@ -111,27 +143,7 @@ def load_library() -> ctypes.CDLL:
             out_dir.mkdir(parents=True, exist_ok=True)
             with FileLock(str(out_dir / "build.lock")):
                 if not lib_path.exists():
-                    tmp = out_dir / f".{_LIB_NAME}.{os.getpid()}.tmp"
-                    cmd = [
-                        _nvcc(),
-                        *_FLAGS,
-                        "-o",
-                        str(tmp),
-                        *[str(s) for s in sources if s.suffix == ".cu"],
-                    ]
-                    proc = subprocess.run(
-                        cmd, capture_output=True, text=True, check=False
-                    )
-                    log_path.write_text(
-                        " ".join(cmd) + "\n" + proc.stdout + proc.stderr
-                    )
-                    if proc.returncode != 0:
-                        msg = (
-                            f"nvcc failed ({proc.returncode}):\n"
-                            f"{proc.stdout}{proc.stderr}"
-                        )
-                        raise RuntimeError(msg)
-                    os.replace(tmp, lib_path)
+                    _compile(sources, out_dir, lib_path, log_path)
         lib = ctypes.CDLL(str(lib_path))
         for name, (argtypes, restype) in _SIGNATURES.items():
             fn = getattr(lib, name)

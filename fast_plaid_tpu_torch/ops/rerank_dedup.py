@@ -28,6 +28,8 @@ import os
 import torch
 
 __all__ = [
+    "dedup_fits",
+    "dedup_smem_bytes",
     "dedup_viable",
     "group_pool",
     "maxsim_gather_scores_dedup",
@@ -69,6 +71,30 @@ def dedup_viable(
         return legal
     n = b * r
     return legal and (n // g + np_rows) <= n // 2
+
+
+def _align128(x: int) -> int:
+    return (x + 127) // 128 * 128
+
+
+def dedup_smem_bytes(doc_cap: int, d: int, q: int, g: int = G_DEFAULT) -> int:
+    """Shared-memory bytes one block of ``csrc/rerank_dedup_kernel.cu`` takes
+    (its ``make_layout``): two [round_up(doc_cap, 16), D + 8] bf16 row
+    buffers, eight warps' 16 x 20 float scratch tiles and G x Q float column
+    maxima, each rounded up to 128 bytes."""
+    buf = _align128((doc_cap + 15) // 16 * 16 * (d + 8) * 2)
+    return 2 * buf + _align128(8 * 16 * 20 * 4) + _align128(g * q * 4)
+
+
+def dedup_fits(doc_cap: int, d: int, q: int, g: int = G_DEFAULT) -> bool:
+    """Does the dedup kernel's block fit in shared memory at this shape?
+
+    Its row buffers grow with doc_cap (past about 400 at D 128, Q 32), while
+    the per-query kernel's shared memory does not depend on doc_cap. Stage 6
+    takes the dedup kernel only where ``dedup_viable`` and this both hold; the
+    two compute the same scores, so the choice is by shape alone.
+    """
+    return dedup_smem_bytes(doc_cap, d, q, g) <= _MAX_SMEM
 
 
 def group_pool(pids: torch.Tensor, lens: torch.Tensor, g: int, e_cap: int):
@@ -235,13 +261,13 @@ def maxsim_gather_scores_dedup(
     if not emb_cache.is_contiguous() or emb_cache.data_ptr() % 16:
         msg = f"{name}: emb_cache must be contiguous and 16-byte aligned"
         raise ValueError(msg)
-    lib = load_library()
-    if lib.fp_maxsim_dedup_smem_bytes(doc_cap, d, nq, g) > _MAX_SMEM:
+    if not dedup_fits(doc_cap, d, nq, g):
         msg = (
             f"{name}: doc_cap={doc_cap}, D={d}, Q={nq}, g={g} needs more "
             "shared memory than one block has"
         )
         raise ValueError(msg)
+    lib = load_library()
     n = b * r
     e_cap = min(n, n // g + np_rows)
     entry_pid, entry_len, entry_qidx, inv, n_entries = group_pool(pids, lens, g, e_cap)

@@ -15,6 +15,10 @@ for tensors on a GPU and runs the plain PyTorch version,
 cache (``ops/q4cache.py``), port of ``_q4_kernel``: the CUDA kernel
 ``csrc/q4_rerank_kernel.cu`` on a GPU, ``maxsim_q4_gather_scores_plain`` on
 the CPU.
+
+Both kernels stream a candidate's rows through shared memory in tiles of 64
+(``csrc/maxsim_stream.cuh``), so their shared memory depends on D and Q
+only and they take documents of any length.
 """
 
 from __future__ import annotations
@@ -28,7 +32,16 @@ __all__ = [
     "maxsim_q4_gather_scores_plain",
 ]
 
-_MAX_SMEM = 227 * 1024
+_MAX_Q = 64  # query tokens per launch; longer queries run in chunks whose sums add
+
+
+def _query_chunks(qb: torch.Tensor) -> list[torch.Tensor]:
+    """[B, Q, D] bf16 -> contiguous chunks of at most ``_MAX_Q`` query tokens.
+    The score is a sum over query tokens, so the chunks' scores add."""
+    q = qb.shape[1]
+    if q <= _MAX_Q:
+        return [qb]
+    return [qb[:, s : s + _MAX_Q].contiguous() for s in range(0, q, _MAX_Q)]
 
 
 def maxsim_gather_scores_plain(
@@ -105,40 +118,40 @@ def maxsim_gather_scores(
     if not all(t.is_contiguous() for t in (emb_cache, pids, lens, qb)):
         msg = "maxsim_gather_scores: inputs must be contiguous"
         raise ValueError(msg)
-    if doc_cap % 16 or d % 16 or q < 1 or b > 65535:
+    if doc_cap % 16 or d % 16 or q < 1:
         msg = (
-            "maxsim_gather_scores: needs doc_cap and D multiples of 16, Q >= 1 "
-            f"and B <= 65535; got doc_cap={doc_cap}, D={d}, Q={q}, B={b}"
+            "maxsim_gather_scores: needs doc_cap and D multiples of 16 and Q >= 1; "
+            f"got doc_cap={doc_cap}, D={d}, Q={q}"
         )
         raise ValueError(msg)
     if emb_cache.data_ptr() % 16 or qb.data_ptr() % 16:
         msg = "maxsim_gather_scores: emb_cache and queries must be 16-byte aligned"
         raise ValueError(msg)
     lib = load_library()
-    if lib.fp_maxsim_gather_smem_bytes(doc_cap, d, q) > _MAX_SMEM:
-        msg = (
-            f"maxsim_gather_scores: doc_cap={doc_cap}, D={d}, Q={q} needs more "
-            "shared memory than one block has"
-        )
+    if lib.fp_maxsim_gather_smem_bytes(d, min(q, _MAX_Q)) < 0:
+        msg = f"maxsim_gather_scores: D={d} is too wide for one block's shared memory"
         raise ValueError(msg)
-    out = torch.empty((b, r), dtype=torch.float32, device=pids.device)
     stream = torch.cuda.current_stream(pids.device).cuda_stream
-    status = lib.fp_maxsim_gather(
-        emb_cache.data_ptr(),
-        n_rows,
-        doc_cap,
-        d,
-        pids.data_ptr(),
-        lens.data_ptr(),
-        qb.data_ptr(),
-        b,
-        r,
-        q,
-        out.data_ptr(),
-        stream,
-    )
-    check(status, "maxsim_gather_scores")
-    maxsim_gather_scores.launches += 1
+    out = None
+    for qc in _query_chunks(qb):
+        part = torch.empty((b, r), dtype=torch.float32, device=pids.device)
+        status = lib.fp_maxsim_gather(
+            emb_cache.data_ptr(),
+            n_rows,
+            doc_cap,
+            d,
+            pids.data_ptr(),
+            lens.data_ptr(),
+            qc.data_ptr(),
+            b,
+            r,
+            qc.shape[1],
+            part.data_ptr(),
+            stream,
+        )
+        check(status, "maxsim_gather_scores")
+        maxsim_gather_scores.launches += 1
+        out = part if out is None else out.add_(part)
     return out
 
 
@@ -242,41 +255,41 @@ def maxsim_q4_gather_scores(
     if not all(t.is_contiguous() for t in (emb_q4, q4_scale, pids, lens, qb)):
         msg = f"{name}: inputs must be contiguous"
         raise ValueError(msg)
-    if d % 16 or q < 1 or b > 65535:
-        msg = (
-            f"{name}: needs D a multiple of 16, Q >= 1 and B <= 65535; "
-            f"got D={d}, Q={q}, B={b}"
-        )
+    if d % 16 or q < 1:
+        msg = f"{name}: needs D a multiple of 16 and Q >= 1; got D={d}, Q={q}"
         raise ValueError(msg)
     if emb_q4.data_ptr() % 16 or qb.data_ptr() % 16:
         msg = f"{name}: emb_q4 and queries must be 16-byte aligned"
         raise ValueError(msg)
     lib = load_library()
-    if lib.fp_maxsim_q4_gather_smem_bytes(caph, d, q) > _MAX_SMEM:
-        msg = (
-            f"{name}: doc_cap={2 * caph}, D={d}, Q={q} needs more shared "
-            "memory than one block has"
-        )
+    if lib.fp_maxsim_q4_gather_smem_bytes(d, min(q, _MAX_Q)) < 0:
+        msg = f"{name}: D={d} is too wide for one block's shared memory"
         raise ValueError(msg)
-    out = torch.empty((b, r), dtype=torch.float32, device=pids.device)
+    # The kernel's dequantized k order inside each group of 4 dimensions is
+    # (0, 2, 1, 3); the queries follow it, which leaves every dot unchanged.
+    qb = qb.view(b, q, d // 4, 2, 2).transpose(-1, -2).reshape(b, q, d).contiguous()
     stream = torch.cuda.current_stream(pids.device).cuda_stream
-    status = lib.fp_maxsim_q4_gather(
-        emb_q4.data_ptr(),
-        q4_scale.data_ptr(),
-        npd,
-        caph,
-        d,
-        pids.data_ptr(),
-        lens.data_ptr(),
-        qb.data_ptr(),
-        b,
-        r,
-        q,
-        out.data_ptr(),
-        stream,
-    )
-    check(status, name)
-    maxsim_q4_gather_scores.launches += 1
+    out = None
+    for qc in _query_chunks(qb):
+        part = torch.empty((b, r), dtype=torch.float32, device=pids.device)
+        status = lib.fp_maxsim_q4_gather(
+            emb_q4.data_ptr(),
+            q4_scale.data_ptr(),
+            npd,
+            caph,
+            d,
+            pids.data_ptr(),
+            lens.data_ptr(),
+            qc.data_ptr(),
+            b,
+            r,
+            qc.shape[1],
+            part.data_ptr(),
+            stream,
+        )
+        check(status, name)
+        maxsim_q4_gather_scores.launches += 1
+        out = part if out is None else out.add_(part)
     return out
 
 

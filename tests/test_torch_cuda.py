@@ -7,7 +7,10 @@ they skip on a machine without one. Run them on the card with
 
 (``--noconftest``: ``tests/conftest.py`` imports jax, which the GPU machine
 need not have.) The three rerank kernels hold at rtol = atol = 1e-3
-(tensor-core accumulation order) with identical -inf patterns.
+(tensor-core accumulation order) with identical -inf patterns. Kernels 2
+and 3 stream fixed 64-row tiles, so they also hold at doc_cap 336, 1,040
+and 2,048, where the dedup kernel's layout no longer fits and stage 6
+takes kernel 2.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ from fast_plaid_tpu_torch.ops.estimate_kernel import (
     segmented_estimate_plain,
 )
 from fast_plaid_tpu_torch.ops.rerank_dedup import (
+    dedup_fits,
     maxsim_gather_scores_dedup,
     maxsim_gather_scores_dedup_plain,
 )
@@ -186,3 +190,115 @@ def test_rerank_kernels_ragged_pool_widths(cuda, r):
              maxsim_q4_gather_scores.launches)
     assert after == tuple(x + 1 for x in before)
     assert torch.isneginf(got2[:, -1]).all() and got2.shape == (b, r)
+
+
+def _long_pool(cuda, g, npd, doc_cap, b, r):
+    """Ragged lengths over [0, doc_cap] with 0, 1, <= caph, caph, caph + 1,
+    doc_cap - 1 and doc_cap spelled out, plus sentinel and out-of-range pids."""
+    caph = doc_cap // 2
+    pids = torch.randint(0, npd, (b, r), generator=g, device=cuda, dtype=torch.int32)
+    lens = torch.randint(0, doc_cap + 1, (b, r), generator=g, device=cuda, dtype=torch.int32)
+    edge = [0, 1, 63, 64, 65, caph - 1, caph, caph + 1, doc_cap - 1, doc_cap]
+    lens[0, : len(edge)] = torch.tensor(edge, dtype=torch.int32, device=cuda)
+    lens[1] = torch.randint(1, caph + 1, (r,), generator=g, device=cuda, dtype=torch.int32)
+    lens[2] = doc_cap
+    pids[3, :4] = torch.tensor([-1, npd, npd + 5000, npd - 1], dtype=torch.int32, device=cuda)
+    return pids, lens
+
+
+@pytest.mark.parametrize("doc_cap", [336, 1040, 2048])
+@pytest.mark.parametrize("q", [32, 24])
+def test_long_documents_kernel2(cuda, doc_cap, q):
+    """Kernel 2 takes any doc_cap: ragged lengths up to doc_cap, empty rows,
+    sentinel and out-of-range pids (-inf), against the plain version."""
+    g = torch.Generator(device=cuda).manual_seed(doc_cap + q)
+    npd, d, b, r = 97, 128, 5, 70
+    emb = torch.randn((npd, doc_cap, d), generator=g, device=cuda).to(torch.bfloat16)
+    pids, lens = _long_pool(cuda, g, npd, doc_cap, b, r)
+    queries = torch.randn((b, q, d), generator=g, device=cuda)
+    before = maxsim_gather_scores.launches
+    got = maxsim_gather_scores(emb, pids, lens, queries)
+    assert maxsim_gather_scores.launches == before + 1
+    _close(got, maxsim_gather_scores_plain(emb, pids, lens, queries))
+    assert torch.isneginf(got[0, 0]) and torch.isneginf(got[3, :3]).all()
+    assert torch.isfinite(got[2]).all()
+
+
+@pytest.mark.parametrize("doc_cap", [336, 1040, 2048])
+@pytest.mark.parametrize("q", [32, 16])
+def test_long_documents_kernel3(cuda, doc_cap, q):
+    """Kernel 3 takes any doc_cap: both nibble planes, lengths <= caph and
+    = doc_cap, clamped pids, against the plain version."""
+    g = torch.Generator(device=cuda).manual_seed(doc_cap * q)
+    npd, d, b, r = 61, 128, 5, 70
+    caph = doc_cap // 2
+    emb_q4 = torch.randint(0, 256, (npd * caph, d), generator=g, device=cuda).to(torch.uint8)
+    scale = torch.rand((npd,), generator=g, device=cuda) + 0.05
+    pids, lens = _long_pool(cuda, g, npd, doc_cap, b, r)
+    queries = torch.randn((b, q, d), generator=g, device=cuda)
+    before = maxsim_q4_gather_scores.launches
+    got = maxsim_q4_gather_scores(emb_q4, scale, pids, lens, queries)
+    assert maxsim_q4_gather_scores.launches == before + 1
+    _close(got, maxsim_q4_gather_scores_plain(emb_q4, scale, pids, lens, queries))
+    assert torch.isneginf(got[0, 0]) and torch.isfinite(got[3, :4]).all()
+
+
+def test_long_queries_run_in_chunks(cuda):
+    """Q above 64 runs as chunks of 64 query tokens whose scores add."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    npd, doc_cap, d, b, r, q = 50, 160, 128, 4, 40, 100
+    emb = torch.randn((npd, doc_cap, d), generator=g, device=cuda).to(torch.bfloat16)
+    pids, lens = _long_pool(cuda, g, npd, doc_cap, b, r)
+    queries = torch.randn((b, q, d), generator=g, device=cuda)
+    before = maxsim_gather_scores.launches
+    got = maxsim_gather_scores(emb, pids, lens, queries)
+    assert maxsim_gather_scores.launches == before + 2
+    _close(got, maxsim_gather_scores_plain(emb, pids, lens, queries))
+    emb_q4 = torch.randint(0, 256, (npd * doc_cap // 2, d), generator=g, device=cuda).to(torch.uint8)
+    scale = torch.rand((npd,), generator=g, device=cuda)
+    _close(maxsim_q4_gather_scores(emb_q4, scale, pids, lens, queries),
+           maxsim_q4_gather_scores_plain(emb_q4, scale, pids, lens, queries))
+
+
+def test_dedup_fits_mirrors_the_kernel_layout(cuda):
+    from fast_plaid_tpu_torch.ops._build import load_library
+
+    lib = load_library()
+    for doc_cap in (16, 48, 160, 336, 400, 416, 1040):
+        for q, g in ((32, 8), (16, 8), (32, 4)):
+            fits = lib.fp_maxsim_dedup_smem_bytes(doc_cap, 128, q, g) <= 227 * 1024
+            assert dedup_fits(doc_cap, 128, q, g) == fits, (doc_cap, q, g)
+    for q in (8, 32, 64):
+        assert 0 < lib.fp_maxsim_gather_smem_bytes(128, q) <= 227 * 1024
+        assert 0 < lib.fp_maxsim_q4_gather_smem_bytes(128, q) <= 227 * 1024
+
+
+def test_stage6_takes_kernel2_past_the_dedup_layout(cuda, monkeypatch, tmp_path):
+    """A dedup-viable pool at doc_cap 1,040: the engine's stage 6 launches
+    kernel 2 (its counter rises, the dedup kernel's does not) and the result
+    equals the plain path's."""
+    import numpy as np
+
+    from fast_plaid_tpu_torch.search import FastPlaid, engine
+
+    monkeypatch.setenv("FASTPLAID_RERANK_DEDUP", "1")
+    rng = np.random.default_rng(0)
+    lens = rng.integers(1000, 1031, 40)
+    lens[0] = 1030
+    docs = [rng.standard_normal((n, 128)).astype(np.float32) for n in lens]
+    fp = FastPlaid(str(tmp_path / "idx"), device="cuda", low_memory=False)
+    fp.create(docs, kmeans_niters=2)
+    loaded = next(iter(fp.indices.values()))
+    ispec = loaded.ispec
+    assert loaded.dev.emb_cache is not None and ispec.doc_cap == 1040
+    assert not dedup_fits(1040, 128, 16)
+    qs = torch.from_numpy(np.stack([d[:16] for d in docs[:8]])).to(cuda)
+    kw = dict(ispec=ispec, top_k=5, n_ivf_probe=4, n_full_scores=32)
+    before = (maxsim_gather_scores.launches, maxsim_gather_scores_dedup.launches)
+    k_ids, k_sc = engine.search_impl(loaded.dev, qs, None, use_rerank_kernel=True, **kw)
+    after = (maxsim_gather_scores.launches, maxsim_gather_scores_dedup.launches)
+    assert after == (before[0] + 1, before[1])
+    p_ids, p_sc = engine.search_impl(loaded.dev, qs, None, use_rerank_kernel=False, **kw)
+    torch.testing.assert_close(k_sc, p_sc, rtol=1e-3, atol=1e-3)
+    assert k_ids[:, 0].cpu().tolist() == list(range(8))
+    fp.close()
