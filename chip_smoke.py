@@ -9,18 +9,20 @@ Phases, each of which raises (non-zero exit) on failure:
 1. Build the CUDA kernels from ``fast_plaid_tpu_torch/csrc`` with nvcc.
 2. Hold each kernel against its plain PyTorch version on the card, at the
    main paths' shapes and at edge cases, and time both: the stage-4
-   estimate (empty rows, one run spanning a row, ragged widths), the
-   per-query rerank (empty rows, sentinel and out-of-range pids), the q4
-   rerank (B 256, R 2048, caph 80; lens 0, sentinel and out-of-range pids,
-   caph 24, lens <= caph) and the dedup rerank (B 256, R 2048 pools of the
-   main path's overlap; one pid for every slot, runs of exactly G and G + 1,
-   all sentinel), the dedup kernel against the per-query kernel as well.
-   The three rerank kernels also at the direct-subset pool's ragged widths
-   R 8, 24, 256 and 3,608 (sorted pids, sentinel tail); kernels 2 and 3 at
-   doc_cap 336, 1,040 and 2,048 (ragged lengths with 0, <= caph and
-   doc_cap, sentinel and out-of-range pids). Each timed kernel prints its
-   ms, GB/s on two byte counts (every slot's rows; each distinct row once),
-   its bound and the share of it; the build prints ptxas's registers.
+   estimate (empty rows, one run spanning a row, ragged widths, a 256 KB
+   table at W 12,152), the per-query rerank (empty rows, sentinel and
+   out-of-range pids), the q4 rerank (B 256, R 2048, caph 80; lens 0,
+   sentinel and out-of-range pids, caph 24, lens <= caph) and the dedup
+   rerank (B 256, R 2048 pools of the main path's overlap; one pid for every
+   slot, runs of exactly G and G + 1, all sentinel; the long-document pool,
+   4,096 pages at doc_cap 1,040, timed; D 256, 384 and 512), the dedup kernel
+   against the per-query kernel as well. The three rerank kernels also at
+   the direct-subset pool's ragged widths R 8, 24, 256 and 3,608 (sorted
+   pids, sentinel tail); kernels 2 and 3 at doc_cap 336, 1,040 and 2,048
+   (ragged lengths with 0, <= caph and doc_cap, sentinel and out-of-range
+   pids). Each timed kernel prints its ms, GB/s on two byte counts (every
+   slot's rows; each distinct row once), its bound and the share of it;
+   the build prints ptxas's registers.
 3. The device-resident path: ``FastPlaid(index, device="cuda",
    low_memory=False).create(docs, metadata=...)`` over a synthetic corpus
    (unit-norm tokens, lengths uniform in [80, 160], d=128, seeded; metadata
@@ -58,10 +60,12 @@ Phases, each of which raises (non-zero exit) on failure:
    the index reopened resident.
 7. Long documents: 4,096 documents of 1,000 to 1,030 tokens (doc_cap
    1,040, as ColPali's ~1,030 patch vectors a page), d 128, seeded, through
-   ``create`` and ``search`` on the resident instance (stage 6 is kernel 2:
-   the pool is dedup-viable but the dedup kernel's rows do not fit a block)
-   and on the default constructor (kernel 3 prefilters). Planted hit@1
-   1.0, the kernel's counter risen, one tile's kernel path = plain path.
+   ``create`` and ``search`` on the resident instance (stage 6 is the dedup
+   kernel: the pool is dedup-viable and the kernel's shared memory does not
+   depend on doc_cap; then the same searches and tile with
+   ``FASTPLAID_RERANK_DEDUP=0``, so kernel 2 runs there too) and on the
+   default constructor (kernel 3 prefilters). Planted hit@1 1.0, the
+   kernel's counter risen, one tile's kernel path = plain path.
 8. Print the kernels' JSON record, then the contract line
    ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -310,6 +314,7 @@ def check_dedup(emb, pids, lens, qs, name: str, timing: bool = False) -> dict:
         "R": r,
         "Q": qs.shape[1],
         "doc_cap": emb.shape[1],
+        "D": emb.shape[2],
         "entries": n_entries,
         "slots": n,
         "max_abs_err": err,
@@ -358,6 +363,11 @@ def phase_kernels(dev: "torch.device", n_docs: int) -> None:
     own3 = torch.randint(0, 12, (5, 1037), generator=g, device=dev, dtype=torch.int32)
     tbl3 = torch.randn((5, 12, 24), generator=g, device=dev)
     check_estimate(pid3, own3, tbl3, "q24_sentinel_tail")
+    # A [C, Q] table past one block's shared memory (C 4,000, Q 32: 256 KB a
+    # row), at the main path's width W 12,152.
+    own4 = torch.randint(0, 4000, (4, 12152), generator=g, device=dev, dtype=torch.int32)
+    tbl4 = torch.randn((4, 4000, 32), generator=g, device=dev)
+    check_estimate(sorted_pids(4, 12152, 20000), own4, tbl4, "table_256KB_w12152")
 
     # Rerank: main-path shape (B 256, R 2048, doc_cap 160, Q 32, D 128).
     npd = ((n_docs + 1 + 7) // 8) * 8
@@ -463,6 +473,28 @@ def phase_kernels(dev: "torch.device", n_docs: int) -> None:
         rec = check_dedup(emb_d, p, dl[p.long()], qd, name)
         if name == "all_sentinel" and rec["empty_rows"] != p.numel():
             raise AssertionError("dedup all-sentinel rows did not score -inf")
+
+    # Dedup on the long-document pool: 4,096 pages of 1,000-1,030 tokens
+    # (doc_cap 1,040), B 256, R 2048 distinct pages a row; timed, and held
+    # against kernel 2 as well. Its shared memory does not depend on doc_cap.
+    n_l = 4096
+    emb_l = torch.randn((n_l + 1, 1040, DIM), generator=g, device=dev).to(torch.bfloat16)
+    len_l = torch.randint(1000, 1031, (n_l + 1,), generator=g, device=dev, dtype=torch.int32)
+    len_l[-1] = 0
+    p_l = torch.argsort(torch.rand((256, n_l), generator=g, device=dev), dim=-1)[:, :2048]
+    p_l = p_l.to(torch.int32).contiguous()
+    check_dedup(emb_l, p_l, len_l[p_l.long()], qs, "long_doc_pool_cap1040", timing=True)
+    del emb_l
+    # Wider rows: D 256, 384 and 512 (doc_cap 160, B 64, R 512 over 5,000
+    # documents); past 384 the query rows stream with the row tiles.
+    for d_w in (256, 384, 512):
+        emb_w = torch.randn((5001, 160, d_w), generator=g, device=dev).to(torch.bfloat16)
+        len_w = torch.randint(1, 161, (5001,), generator=g, device=dev, dtype=torch.int32)
+        len_w[-1] = 0
+        p_w = torch.randint(0, 5001, (64, 512), generator=g, device=dev, dtype=torch.int32)
+        q_w = torch.randn((64, Q_LEN, d_w), generator=g, device=dev)
+        check_dedup(emb_w, p_w, len_w[p_w.long()], q_w, f"D{d_w}")
+        del emb_w
 
 
 def planted_corpus(n_docs: int, seed: int, lo: int = 80, hi: int = 160):
@@ -1286,13 +1318,15 @@ def phase_mutable(dev, index_dir, docs, queries, n_queries, probe_pids, counters
 def phase_long_docs(dev, counters, seed: int, n_docs: int = 4096) -> dict:
     """Phase 7: long documents through the API. 4,096 documents of 1,000 to
     1,030 unit-norm tokens (doc_cap 1,040, as ColPali's ~1,030 patch vectors
-    a page), d 128, seeded. The resident instance's stage 6 is kernel 2: the
-    pool is dedup-viable but the dedup kernel's rows do not fit a block. The
-    default constructor's q4 prefilter is kernel 3. Each: planted hit@1 1.0,
-    the kernel's counter risen, one tile's kernel path = plain path."""
+    a page), d 128, seeded. The resident instance's stage 6 is the dedup
+    kernel (the pool is dedup-viable and its shared memory does not depend on
+    doc_cap); the same tile then runs with ``FASTPLAID_RERANK_DEDUP=0``, so
+    kernel 2 runs there too. The default constructor's q4 prefilter is
+    kernel 3. Each: planted hit@1 1.0, the kernel's counter risen, one
+    tile's kernel path = plain path."""
     import torch
 
-    from fast_plaid_tpu_torch.ops.rerank_dedup import dedup_fits, dedup_viable
+    from fast_plaid_tpu_torch.ops.rerank_dedup import dedup_viable
     from fast_plaid_tpu_torch.search import FastPlaid, engine, searcher
 
     t0 = time.perf_counter()
@@ -1313,16 +1347,10 @@ def phase_long_docs(dev, counters, seed: int, n_docs: int = 4096) -> dict:
         ispec = loaded.ispec
         cap = ispec.doc_cap
         viable = dedup_viable(loaded.dev.emb_cache.shape[0], 256, N_FULL // 2, Q_LEN, DIM)
-        fits = dedup_fits(cap, DIM, Q_LEN)
         log(f"# [long docs] {n_docs} docs, {sum(len(d) for d in docs)} tokens, corpus + "
-            f"create {out['create_s']:.2f} s; {ispec}; dedup_viable={viable}, "
-            f"dedup_fits={fits}")
-        if cap != 1040 or not viable or fits:
-            raise AssertionError(f"long docs: doc_cap {cap}, viable {viable}, fits {fits}")
-        res = api_search(fp, queries, counters, 256, probe_pids, "long docs, resident",
-                         ("maxsim_gather_scores",), expect_cells=False)
-        if res["launches"]["maxsim_gather_scores_dedup"]:
-            raise AssertionError("long docs: the dedup kernel ran past its layout")
+            f"create {out['create_s']:.2f} s; {ispec}; dedup_viable={viable}")
+        if cap != 1040 or not viable:
+            raise AssertionError(f"long docs: doc_cap {cap}, viable {viable}")
         kw = engine_kwargs(loaded, fp.mem_budget)
         tile = torch.from_numpy(queries[:256].astype(np.float16)).to(dev)
 
@@ -1330,13 +1358,32 @@ def phase_long_docs(dev, counters, seed: int, n_docs: int = 4096) -> dict:
             return engine.search_impl(loaded.dev, tile, None, use_estimate_kernel=k,
                                       use_rerank_kernel=k, **kw)
 
+        res = api_search(fp, queries, counters, 256, probe_pids, "long docs, resident",
+                         ("maxsim_gather_scores_dedup",), expect_cells=False)
         res["diff"], _ = compare_tile("long docs, resident", res_tile)
         res["tile_ms"] = tile_latency(lambda: res_tile(True), "long docs, resident", n=10)
-        with Recorder(engine, "maxsim_gather_scores") as rec:
+        with Recorder(engine, "maxsim_gather_scores_dedup") as rec:
             with torch.inference_mode():
                 res_tile(True)
-        res["rr"] = check_rerank(*rec.args, "long_docs_main_path_inputs", timing=True)
+        res["dedup"] = check_dedup(*rec.args, "long_docs_main_path_inputs", timing=True)
         out["resident"] = res
+
+        # The same index and tile with the per-query stage 6 (kernel 2).
+        os.environ["FASTPLAID_RERANK_DEDUP"] = "0"
+        try:
+            res = api_search(fp, queries, counters, 256, probe_pids,
+                             "long docs, resident, dedup off", ("maxsim_gather_scores",),
+                             expect_cells=False)
+            res["diff"], _ = compare_tile("long docs, resident, dedup off", res_tile)
+            res["tile_ms"] = tile_latency(lambda: res_tile(True),
+                                          "long docs, resident, dedup off", n=10)
+            with Recorder(engine, "maxsim_gather_scores") as rec:
+                with torch.inference_mode():
+                    res_tile(True)
+            res["rr"] = check_rerank(*rec.args, "long_docs_main_path_inputs", timing=True)
+        finally:
+            del os.environ["FASTPLAID_RERANK_DEDUP"]
+        out["resident_k2"] = res
         fp.close()
         torch.cuda.empty_cache()
 
@@ -1410,7 +1457,8 @@ def main() -> None:
     lib = _build.load_library()
     log(f"# dynamic shared memory a block (D {DIM}, Q {Q_LEN}; any doc_cap): kernel 2 "
         f"{lib.fp_maxsim_gather_smem_bytes(DIM, Q_LEN)} B, kernel 3 "
-        f"{lib.fp_maxsim_q4_gather_smem_bytes(DIM, Q_LEN)} B")
+        f"{lib.fp_maxsim_q4_gather_smem_bytes(DIM, Q_LEN)} B, kernel 4 "
+        f"{lib.fp_maxsim_dedup_smem_bytes(DIM, Q_LEN)} B")
     log(f"# kernels built in {build_s:.2f} s: {info['path']}")
 
     phase_kernels(dev, args.n_docs)
@@ -1455,7 +1503,9 @@ def main() -> None:
         log(f"# summary [{label}]: {r['qps']:.1f} API QPS (top_k {TOP_K}, 256-query "
             f"tiles), tile p50/p99 {r['tile_ms'][0]:.3f}/{r['tile_ms'][1]:.3f} ms, "
             f"planted hit@1 {r['hit1']}, on {smi}")
-    for label, r in (("long docs, resident (kernel 2 stage 6)", long_res["resident"]),
+    for label, r in (("long docs, resident (dedup stage 6)", long_res["resident"]),
+                     ("long docs, resident, dedup off (kernel 2 stage 6)",
+                      long_res["resident_k2"]),
                      ("long docs, low_memory + q4 prefilter", long_res["low_memory"])):
         log(f"# summary [{label}]: {r['qps']:.1f} API QPS, tile p50/p99 "
             f"{r['tile_ms'][0]:.3f}/{r['tile_ms'][1]:.3f} ms, planted hit@1 {r['hit1']}, "

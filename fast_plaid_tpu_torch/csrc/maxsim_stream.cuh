@@ -1,8 +1,9 @@
-// The streaming core shared by the two per-query rerank kernels
-// (csrc/rerank_kernel.cu over the bf16 corpus cache, csrc/q4_rerank_kernel.cu
-// over the 4-bit token-pair cache): a candidate's rows stream through shared
-// memory in fixed tiles of kTile rows, so shared memory does not depend on
-// doc_cap, and each candidate's MaxSim stays in registers.
+// The streaming core shared by the rerank kernels (csrc/rerank_kernel.cu over
+// the bf16 corpus cache, csrc/q4_rerank_kernel.cu over the 4-bit token-pair
+// cache, and, for its barriers, copies and bf16 tile, csrc/rerank_dedup_kernel.cu):
+// a candidate's rows stream through shared memory in fixed tiles of kTile rows,
+// so shared memory does not depend on doc_cap, and each candidate's MaxSim
+// stays in registers.
 //
 // Block: W consumer warps (warps 0..W-1) and W producer warps (W..2W-1).
 // Producer warp W + c feeds consumer warp c only, through c's own ring of S
@@ -305,6 +306,54 @@ __device__ __forceinline__ float column_max_sum(float (*mx)[2], int Q) {
   return s;
 }
 
+// Fold one [64, D] bf16 row tile (rows t0.., the first `rows - t0` valid, at
+// `a_stride` bytes a row) against a [NT * 8, D] bf16 query block (rows at
+// `q_stride` bytes) into the running maxima of the NT * 8 query columns.
+// Used by the bf16 per-query kernel and the dedup kernel.
+template <int NT>
+__device__ __forceinline__ void bf16_tile(const unsigned char* A, const unsigned char* qs,
+                                          int q_stride, int a_stride, int D, int t0, int rows,
+                                          float (*mx)[2]) {
+  constexpr int MS = NT <= 4 ? 4 : 2;  // m16 slices per pass (accumulator registers)
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int lim = rows - t0;  // valid rows of this tile
+  const int KT = D / 16;
+#pragma unroll
+  for (int mp = 0; mp < 4 / MS; ++mp) {
+    if (mp * MS * 16 >= lim) break;
+    float acc[MS][NT][4];
+#pragma unroll
+    for (int m = 0; m < MS; ++m)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[m][j][e] = 0.f;
+#pragma unroll 2
+    for (int kb = 0; kb < KT; ++kb) {
+      uint32_t bq[NT][2];
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const unsigned char* qrow = qs + (j * 8 + g) * q_stride + kb * 32 + t * 4;
+        bq[j][0] = *reinterpret_cast<const uint32_t*>(qrow);
+        bq[j][1] = *reinterpret_cast<const uint32_t*>(qrow + 16);
+      }
+#pragma unroll
+      for (int m = 0; m < MS; ++m) {
+        const int m16 = (mp * MS + m) * 16;
+        if (m16 < lim) {
+          uint32_t a[4];
+          ldmatrix_x4(a, A + (m16 + (lane & 15)) * a_stride + kb * 32 + (lane >> 4) * 16);
+#pragma unroll
+          for (int j = 0; j < NT; ++j) mma_bf16(acc[m][j], a, bq[j][0], bq[j][1]);
+        }
+      }
+    }
+#pragma unroll
+    for (int m = 0; m < MS; ++m) fold_max<NT>(mx, acc[m], (mp * MS + m) * 16 + g, lim);
+  }
+}
+
 // Consumer warp c: for every candidate of its spans, `tile(stage, query
 // buffer, tile start, rows, len, mx)` folds each tile into the running
 // maxima; `finish(doc, sum)` gives the stored value. `rows_of` must be the
@@ -362,18 +411,19 @@ __device__ __forceinline__ void consume(unsigned char* smem, const Layout& L, in
   }
 }
 
-// Blocks of the persistent grid: one per span, at most what fits on the card.
+// Blocks of a persistent grid: one per unit of work (span, entry), at most
+// what fits on the card at `threads` threads and `smem` bytes a block.
 template <typename Kernel>
-inline int grid_size(Kernel kernel, const Layout& L, int n_spans, int* err) {
+inline int grid_size(Kernel kernel, int threads, int smem, int n_work, int* err) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess) {
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, 64 * L.warps, L.total);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
   }
   *err = static_cast<int>(e);
   if (e != cudaSuccess) return 0;
-  return std::max(1, std::min(n_spans, sms * std::max(per_sm, 1)));
+  return std::max(1, std::min(n_work, sms * std::max(per_sm, 1)));
 }
 
 }  // namespace fp_stream

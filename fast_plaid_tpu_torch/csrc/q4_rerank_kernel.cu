@@ -153,7 +153,7 @@ int launch(const void* emb_q4, const void* scale, int n_docs, int caph, int D, c
   const int span = kSpanPerWarp * L.warps;
   const int n_spans = B * ((R + span - 1) / span);
   int status = 0;
-  const int grid = grid_size(kernel, L, n_spans, &status);
+  const int grid = grid_size(kernel, 64 * L.warps, L.total, n_spans, &status);
   if (status != 0) return status;
   kernel<<<grid, 64 * L.warps, L.total, stream>>>(
       static_cast<const uint8_t*>(emb_q4), static_cast<const float*>(scale), n_docs, caph, D,

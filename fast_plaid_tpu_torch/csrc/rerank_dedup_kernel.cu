@@ -2,237 +2,484 @@
 // group of at most G requesting queries), over the bf16 corpus cache (stage 6).
 //
 // Replaces: fast_plaid_tpu/ops/rerank_dedup.py:_dedup_kernel (Pallas, TPU),
-// wrapper maxsim_gather_scores_dedup. ops/rerank_dedup.py's group_pool sorts the
-// [B, R] rerank pool by pid and cuts each pid's run of requesters into entries
-// of at most G; this kernel scores entry e's row against each of its cnt[e]
-// requesters:
+// wrapper maxsim_gather_scores_dedup. ops/rerank_dedup.py sorts the [B, R]
+// rerank pool by pid (`order`: sorted position -> flat slot b * R + r) and cuts
+// each pid's run of requesters into entries of at most G; entry e spans sorted
+// positions [bounds[e], bounds[e + 1]). For each requester slot s of entry e
+// (its query row s / R), with the entry's document and length those of its
+// first slot:
 //
-//   out[e, j] = sum_q max_{t < len[e]} <emb[pid[e], t, :], queries[qidx[e, j], q, :]>
+//   out[s] = sum_q max_{t < len} <emb[pid, t, :], queries[s / R, q, :]>
 //
-// for j < cnt[e], bf16 inputs and float32 accumulation. An entry of length 0, or
-// whose pid lies outside [0, n_rows), scores -inf for its live slots without a
-// read; slots j >= cnt[e] and entries >= *n_entries are never written (the
-// wrapper scatters only live slots back to [B, R]). The Pallas kernel sums over
+// bf16 inputs, float32 accumulation; -inf where the entry's length is 0 or
+// the slot's own length is <= 0. pids are clamped to [0, n_rows), as the JAX
+// wrapper clamps its entry pids. Slots are written straight into the [B, R]
+// output: no [E, G] score table and no gather back. The Pallas kernel sums over
 // Q with a 0/1 matmul and clamps -inf at -1e30 (TPU workarounds); here each
-// requester's sum is a plain loop over its Q column maxima.
+// requester's sum is a short loop over its Q column maxima.
 //
-// What bounds it on the H100: memory, as the per-query kernel, but on fewer
-// rows. At B 256, R 2048 over 57,640 rows the per-query kernel reads 524,288
-// candidate rows (~16 GB); the tile holds at most B*R/G + Np = 123,176 entries.
-// The requesters' query blocks (Q x D bf16, 8 KB each) come from the tile's
-// 2 MB of queries, which stay in L2.
+// What bounds it on the H100: the tensor cores. At the main path's pool (B 256,
+// R 2048, Q 32, D 128, lengths 80..160 over 57,640 rows) the function is ~515
+// GFLOP, 0.52 ms at 989 TFLOP/s, against 1.77 GB of distinct rows, 0.53 ms at
+// 3.35 TB/s; the requesters' query blocks add one 8 KB block per slot (4.3 GB
+// a tile, from L2). mma.sync does not reach that rate here: a streaming
+// mma.sync design (a requester a warp, a cp.async.bulk per row) ran at ~170
+// TFLOP/s at best on an H100, bound by instruction throughput and latency.
 //
-// Design: that of csrc/rerank_kernel.cu, with entries in place of candidates.
-// One block of 8 warps walks kEntPerBlock consecutive entries with a two-stage
-// cp.async ring (entry e + 1's first len rows stream in while entry e is
-// contracted). Blocks whose first entry lies at or past *n_entries (read on the
-// device: the entry count is data dependent) return at once. A warp owns one
-// 16-column tile of one requester's query tokens: it loads that tile's D/16
-// wmma B fragments from global memory (L2) into registers once, then walks the
-// row's 16-token M tiles (split across warps when cnt is small), reducing each
-// 16x16 f32 product tile through a per-warp shared scratch into running column
-// maxima, masked by len. Column maxima of the entry meet in shared memory
-// (atomic float max: order-free, so deterministic); thread j then sums
-// requester j's Q maxima. TMA, wgmma and deeper pipelining are later work.
+// Design: warpgroup MMA fed by TMA. A block holds one producer warp and one or
+// two consumer warpgroups; a persistent grid walks the live entries (their
+// count read on the device) with a stride of the grid, so the entries of one
+// popular pid run at the same time on neighbouring blocks and its rows come
+// from L2 after the first read. For an entry the producer loads, with one TMA
+// copy per 64-column half and 128-byte swizzle, each requester's [Q, D] query
+// block into a query area ([rows = requesters x Q rounded to 8, D], up to 128
+// rows per warpgroup; double-buffered where it fits) and then the entry's
+// first len rows as [64, D] tiles into a ring of stages (OOB rows zero-filled,
+// rows past len masked). Each consumer warpgroup runs wgmma m64n128k16 over
+// the tile against its 128 query columns (4 requesters at Q 32), keeps the
+// length-masked running max in registers, and at the entry's end takes the
+// max over the four warps' rows through a small shared scratch and sums each
+// requester's Q columns. Past D 384 the query area does not fit a block, and
+// the pass's query rows stream with each row tile instead, 128 columns at a
+// time (`WIDE`). Shared memory depends on D and Q only, never on doc_cap;
+// entries with more requesters than a pass takes run several passes over
+// their rows. Q above 64 runs in chunks whose scores the wrapper adds.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <mma.h>
-#include <stdint.h>
+#include <cuda.h>
+
+#include "maxsim_stream.cuh"
 
 namespace {
 
-using namespace nvcuda;
+using namespace fp_stream;
 
-constexpr int kWarps = 8;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kEntPerBlock = 8;
-constexpr int kScrLd = 20;  // float row stride of a warp's 16x16 scratch tile
+constexpr int kSwz = 64;       // bf16 columns of one 128-byte swizzle span
+constexpr int kWgCols = 128;   // query columns of a consumer warpgroup (wgmma N)
+constexpr int kMaxWgs = 2;
+constexpr int kHalfBytes = kTile * 128;  // one [64 rows, 64 columns] bf16 tile
 
-__device__ __forceinline__ void cp_async16(void* smem_ptr, const void* gmem_ptr) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem_ptr));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem_ptr));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-__device__ __forceinline__ void cp_async_wait_prev() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
-}
-
-// Float max through integer atomics; the target starts at -inf.
-__device__ __forceinline__ void atomic_max_f(float* addr, float v) {
-  if (v >= 0.f) {
-    atomicMax(reinterpret_cast<int*>(addr), __float_as_int(v));
-  } else {
-    atomicMin(reinterpret_cast<unsigned int*>(addr), __float_as_uint(v));
-  }
-}
-
-struct Layout {
-  int lda;  // bf16 row stride of the document tiles (D + 8)
-  size_t buf_off, buf_bytes, scr_off, col_off, total;
+// Shared-memory plan of one block. Every offset is in bytes from a 1024-byte
+// aligned base (the swizzle pattern follows address bits). Where the whole
+// [rows, D] query area fits (D up to 384), it is loaded once per pass and a
+// stage holds one [64, D] row tile; past that ("wide"), a stage holds a chunk
+// of `kh` 64-column halves of the row tile and of the pass's query rows.
+struct DLayout {
+  int wgs;          // consumer warpgroups
+  int stages;       // ring stages
+  int q_bufs;       // query areas (0 when wide)
+  int wide;         // queries stream with the row tiles, chunk by chunk
+  int kh;           // 64-column halves a stage holds
+  int chunks;       // stages per row tile (D / 64 / kh)
+  int qp;           // query columns a requester takes (Q rounded up to 8)
+  int per_wg;       // requesters a warpgroup scores in one pass (kWgCols / qp)
+  int halves;       // D / 64
+  int a_bytes;      // the row part of a stage: kh [64, 64] halves
+  int stage_bytes;  // a_bytes, plus the query chunk when wide
+  int q_half;       // one 64-column half of query rows: wgs * 128 rows * 128 B
+  int q_bytes;      // one query area (0 when wide)
+  int ring_off, scr_off, bar_off, total;
 };
 
-__host__ __device__ inline size_t align128(size_t x) { return (x + 127) & ~size_t(127); }
-
-__host__ __device__ inline Layout make_layout(int doc_cap, int D, int Q, int G) {
-  Layout l;
-  l.lda = D + 8;
-  l.buf_off = 0;
-  l.buf_bytes = align128(static_cast<size_t>((doc_cap + 15) / 16 * 16) * l.lda * 2);
-  l.scr_off = 2 * l.buf_bytes;
-  l.col_off = l.scr_off + align128(static_cast<size_t>(kWarps) * 16 * kScrLd * 4);
-  l.total = l.col_off + align128(static_cast<size_t>(G) * Q * 4);
+DLayout make_dlayout(int wgs, int stages, int q_bufs, int wide, int q, int D) {
+  DLayout l;
+  l.wgs = wgs;
+  l.stages = stages;
+  l.q_bufs = wide ? 0 : q_bufs;
+  l.wide = wide;
+  l.qp = (q + 7) / 8 * 8;
+  l.per_wg = kWgCols / l.qp;
+  l.halves = D / kSwz;
+  l.kh = wide ? (l.halves % 2 ? 1 : 2) : l.halves;
+  l.chunks = l.halves / l.kh;
+  l.q_half = wgs * kWgCols * 128;
+  l.a_bytes = l.kh * kHalfBytes;
+  l.stage_bytes = l.a_bytes + (wide ? l.kh * l.q_half : 0);
+  l.q_bytes = wide ? 0 : l.halves * l.q_half;
+  l.ring_off = l.q_bufs * l.q_bytes;
+  l.scr_off = l.ring_off + stages * l.stage_bytes;
+  l.bar_off = l.scr_off + wgs * 5 * kWgCols * 4;
+  l.total = l.bar_off + (2 * stages + 2 * l.q_bufs) * 8 + 1024;  // + alignment slack
   return l;
 }
 
-template <int KT>  // KT = D / 16
-__global__ void __launch_bounds__(kThreads, 2)
-maxsim_dedup_kernel(const __nv_bfloat16* __restrict__ emb, int n_rows, int doc_cap,
-                    const int32_t* __restrict__ epid, const int32_t* __restrict__ elen,
-                    const int32_t* __restrict__ ecnt, const int32_t* __restrict__ eqidx,
-                    const int32_t* __restrict__ n_entries, int E,
-                    const __nv_bfloat16* __restrict__ queries, int Q, int G,
-                    float* __restrict__ out) {
-  constexpr int D = KT * 16;
-  const int n_ent = min(*n_entries, E);
-  const int e0 = blockIdx.x * kEntPerBlock;
-  if (e0 >= n_ent) return;  // padding entries cost one read of the count
-  const int e1 = min(e0 + kEntPerBlock, n_ent);
-
-  extern __shared__ __align__(128) unsigned char smem[];
-  const Layout L = make_layout(doc_cap, D, Q, G);
-  __nv_bfloat16* buf0 = reinterpret_cast<__nv_bfloat16*>(smem + L.buf_off);
-  __nv_bfloat16* buf1 = reinterpret_cast<__nv_bfloat16*>(smem + L.buf_off + L.buf_bytes);
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  float* scr = reinterpret_cast<float*>(smem + L.scr_off) + warp * 16 * kScrLd;
-  float* colmax = reinterpret_cast<float*>(smem + L.col_off);
-  constexpr int vecs = D / 8;  // 16-byte vectors per row
-
-  auto valid_len = [&](int e) -> int {
-    const int32_t pid = epid[e];
-    if (pid < 0 || pid >= n_rows) return 0;
-    return min(max(static_cast<int>(elen[e]), 0), doc_cap);
-  };
-  auto issue = [&](int e, __nv_bfloat16* buf) {
-    const int n = valid_len(e);
-    if (n == 0) return;
-    const __nv_bfloat16* src = emb + static_cast<int64_t>(epid[e]) * doc_cap * D;
-    for (int c = tid; c < n * vecs; c += kThreads) {
-      const int row = c / vecs, c8 = c % vecs;
-      cp_async16(buf + row * L.lda + c8 * 8, src + static_cast<int64_t>(row) * D + c8 * 8);
+// The widest plan that fits one block; it depends on D and Q only.
+bool choose_dlayout(int q, int D, DLayout* out) {
+  static const int kPlans[][4] = {  // (warpgroups, stages, query areas, wide)
+      {2, 5, 2, 0}, {2, 4, 2, 0}, {2, 3, 2, 0}, {2, 2, 2, 0}, {2, 4, 1, 0}, {2, 3, 1, 0},
+      {2, 2, 1, 0}, {1, 4, 2, 0}, {1, 3, 2, 0}, {1, 2, 2, 0}, {1, 3, 1, 0}, {1, 2, 1, 0},
+      {2, 3, 0, 1}, {2, 2, 0, 1}, {1, 3, 0, 1}, {1, 2, 0, 1}};
+  if (q < 1 || q > kMaxQ || D < kSwz || D % kSwz) return false;
+  for (const auto& p : kPlans) {
+    const DLayout l = make_dlayout(p[0], p[1], p[2], p[3], q, D);
+    if (l.total <= kMaxSmem && (l.wide || l.halves <= 6)) {
+      *out = l;
+      return true;
     }
-  };
+  }
+  return false;
+}
 
-  issue(e0, buf0);
-  cp_async_commit();
-  const int qt = Q / 16;  // 16-column tiles per requester
-  for (int e = e0; e < e1; ++e) {
-    const int cur = (e - e0) & 1;
-    if (e + 1 < e1) issue(e + 1, cur ? buf0 : buf1);
-    cp_async_commit();
-    const int n = valid_len(e);
-    const int cnt = min(max(static_cast<int>(ecnt[e]), 0), G);
-    for (int i = tid; i < cnt * Q; i += kThreads) colmax[i] = -INFINITY;
-    cp_async_wait_prev();  // entry e's rows have landed (this thread's copies)
-    __syncthreads();       // ... and everyone's, and colmax is reset
+// ---- TMA and wgmma ------------------------------------------------------------
 
-    if (n == 0) {
-      if (tid < cnt) out[static_cast<int64_t>(e) * G + tid] = -INFINITY;
-    } else {
-      const __nv_bfloat16* A = cur ? buf1 : buf0;
-      const int n_ct = cnt * qt;
-      const int n_mt = (n + 15) / 16;
-      const int groups = max(1, kWarps / max(n_ct, 1));  // M-tile split when cnt is small
-      for (int it = warp; it < n_ct * groups; it += kWarps) {
-        const int ct = it / groups, grp = it % groups;
-        if (grp >= n_mt) continue;
-        const int j = ct / qt, c = ct % qt;
-        const int64_t qi = eqidx[static_cast<int64_t>(e) * G + j];
-        const __nv_bfloat16* qb = queries + (qi * Q + c * 16) * D;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> fb[KT];
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, int col, int row,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(row), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Descriptor of a K-major operand in 128-byte swizzle: rows of 128 bytes,
+// 8-row atoms 1024 bytes apart; a k16 step within the span adds 32 bytes.
+__device__ __forceinline__ uint64_t swz_desc(const void* p) {
+  const uint64_t a = smem_u32(p);
+  return ((a & 0x3FFFF) >> 4) | (uint64_t(1) << 16) | (uint64_t(1024 >> 4) << 32) |
+         (uint64_t(1) << 62);
+}
+
+// d (64 f32 a thread) = (scale_d ? d : 0) + A x B^T over k16: A [64, 16] and
+// B [128, 16], both K-major in shared memory behind 128-byte-swizzle descriptors.
+__device__ __forceinline__ void wgmma_m64n128k16(float* d, uint64_t desc_a, uint64_t desc_b,
+                                                 int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// Pin the accumulators at this point of the program: the compiler does not
+// know that wgmma writes them asynchronously, so reads stay after the wait.
+__device__ __forceinline__ void fence_acc(float* d) {
 #pragma unroll
-        for (int k = 0; k < KT; ++k) wmma::load_matrix_sync(fb[k], qb + k * 16, D);
-        float cm = -INFINITY;
-        for (int mt = grp; mt < n_mt; mt += groups) {
-          wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-          wmma::fill_fragment(acc, 0.0f);
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__device__ __forceinline__ void wg_bar(int id) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(128) : "memory");
+}
+
+// acc (+)= A x B^T over KH 64-column halves: A at `a` ([64 rows, 64] halves
+// kHalfBytes apart), B at `b` ([128 rows, 64] halves `b_half` apart). One
+// wgmma group, waited for: a second group in flight (two accumulator sets,
+// ping-pong) ran slower on an H100, register-bound at 9 warps a block.
+template <int KH>
+__device__ __forceinline__ void wgmma_halves(float* acc, const unsigned char* a,
+                                             const unsigned char* b, int b_half,
+                                             bool accumulate) {
+  fence_acc(acc);
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
-          for (int k = 0; k < KT; ++k) {
-            wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa;
-            wmma::load_matrix_sync(fa, A + mt * 16 * L.lda + k * 16, L.lda);
-            wmma::mma_sync(acc, fa, fb[k], acc);
-          }
-          wmma::store_matrix_sync(scr, acc, kScrLd, wmma::mem_row_major);
-          __syncwarp();
-          // Lanes 0-15 take rows 0-7 of column lane, lanes 16-31 rows 8-15.
-          const int col = lane & 15, half = lane >> 4;
-#pragma unroll
-          for (int i = 0; i < 8; ++i) {
-            const int row = half * 8 + i;
-            if (mt * 16 + row < n) cm = fmaxf(cm, scr[row * kScrLd + col]);
-          }
-          __syncwarp();
-        }
-        cm = fmaxf(cm, __shfl_xor_sync(0xffffffffu, cm, 16));
-        if (lane < 16) atomic_max_f(&colmax[ct * 16 + lane], cm);
-      }
-      __syncthreads();
-      if (tid < cnt) {
-        float s = 0.f;
-        for (int x = 0; x < Q; ++x) s += colmax[tid * Q + x];
-        out[static_cast<int64_t>(e) * G + tid] = s;
-      }
+  for (int k = 0; k < 4 * KH; ++k) {
+    wgmma_m64n128k16(acc, swz_desc(a + (k >> 2) * kHalfBytes + (k & 3) * 32),
+                     swz_desc(b + (k >> 2) * b_half + (k & 3) * 32), accumulate || k > 0);
+  }
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  fence_acc(acc);
+}
+
+struct Entry {
+  int start, cnt, rows, doc;
+};
+
+// Entry e's sorted span, its document (clamped) and the rows it needs.
+__device__ __forceinline__ Entry entry_at(int e, const int32_t* __restrict__ bounds,
+                                          const int32_t* __restrict__ order,
+                                          const int32_t* __restrict__ pids,
+                                          const int32_t* __restrict__ lens, int n_rows,
+                                          int doc_cap) {
+  Entry en;
+  en.start = bounds[e];
+  en.cnt = bounds[e + 1] - en.start;
+  const int s0 = order[en.start];
+  en.doc = min(max(static_cast<int>(pids[s0]), 0), n_rows - 1);
+  en.rows = min(max(static_cast<int>(lens[s0]), 0), doc_cap);
+  return en;
+}
+
+// Every warp walks the block's entries in batches of 32: lane l loads the
+// metadata of the batch's l-th entry, and `body` gets them one at a time.
+template <typename Body>
+__device__ __forceinline__ void walk_entries(int n_ent, const int32_t* __restrict__ bounds,
+                                             const int32_t* __restrict__ order,
+                                             const int32_t* __restrict__ pids,
+                                             const int32_t* __restrict__ lens, int n_rows,
+                                             int doc_cap, Body body) {
+  const int lane = threadIdx.x & 31;
+  const int stride = gridDim.x;
+  for (int eb = blockIdx.x; eb < n_ent; eb += 32 * stride) {
+    const int e = eb + lane * stride;
+    Entry my{0, 0, 0, 0};
+    if (e < n_ent) my = entry_at(e, bounds, order, pids, lens, n_rows, doc_cap);
+    const int n_here = min(32, (n_ent - eb + stride - 1) / stride);
+    for (int l = 0; l < n_here; ++l) {
+      Entry en;
+      en.start = __shfl_sync(0xffffffffu, my.start, l);
+      en.cnt = __shfl_sync(0xffffffffu, my.cnt, l);
+      en.rows = __shfl_sync(0xffffffffu, my.rows, l);
+      en.doc = __shfl_sync(0xffffffffu, my.doc, l);
+      body(en);
     }
-    __syncthreads();  // buffers and colmax are reused by the next entry
   }
 }
 
-template <int KT>
-int launch(const void* emb, int n_rows, int doc_cap, const void* epid, const void* elen,
-           const void* ecnt, const void* eqidx, const void* n_entries, int E,
-           const void* queries, int Q, int G, void* out, cudaStream_t stream) {
-  const size_t smem = make_layout(doc_cap, KT * 16, Q, G).total;
-  cudaError_t err = cudaFuncSetAttribute(maxsim_dedup_kernel<KT>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+// KH: 64-column halves a stage holds; WIDE: queries stream with the stages.
+template <int KH, bool WIDE>
+__global__ void __launch_bounds__(32 * (4 * kMaxWgs + 1), 1)
+maxsim_dedup_kernel(const __grid_constant__ CUtensorMap tm_emb,
+                    const __grid_constant__ CUtensorMap tm_q, int n_rows, int doc_cap,
+                    const int32_t* __restrict__ pids, const int32_t* __restrict__ lens,
+                    const int32_t* __restrict__ order, const int32_t* __restrict__ bounds,
+                    const int32_t* __restrict__ n_entries, int E, int R, int Q,
+                    float* __restrict__ out, DLayout L) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  unsigned char* smem = smem_raw + (((raw + 1023) & ~1023u) - raw);
+  const int S = L.stages, QB = L.q_bufs;
+  const int per_pass = L.wgs * L.per_wg;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L.bar_off);
+  uint64_t* empty = full + S;
+  uint64_t* qfull = empty + S;
+  uint64_t* qempty = qfull + QB;
+  float* scr = reinterpret_cast<float*>(smem + L.scr_off);
+  unsigned char* ring = smem + L.ring_off;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int n_cons_warps = 4 * L.wgs;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < S; ++i) {
+      bar_init(&full[i], 1);
+      bar_init(&empty[i], n_cons_warps);
+    }
+    for (int i = 0; i < QB; ++i) {
+      bar_init(&qfull[i], 1);
+      bar_init(&qempty[i], n_cons_warps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int n_ent = min(*n_entries, E);
+  const int chunks = WIDE ? L.chunks : 1;
+  const uint32_t q_tx = static_cast<uint32_t>(Q) * 128;  // one [Q, 64] query half
+  int kt = 0;  // ring stages so far
+  int it = 0;  // passes so far (query areas)
+
+  if (warp == n_cons_warps) {  // producer
+    walk_entries(n_ent, bounds, order, pids, lens, n_rows, doc_cap, [&](const Entry& en) {
+      const int row0 = en.doc * doc_cap;
+      for (int p0 = 0; p0 < en.cnt; p0 += per_pass) {
+        const int nreq = min(per_pass, en.cnt - p0);
+        const int b = lane < nreq ? order[en.start + p0 + lane] / R : 0;
+        // Where requester `lane`'s query rows go within a query half.
+        const int q_row = (lane / L.per_wg) * kWgCols + (lane % L.per_wg) * L.qp;
+        if (!WIDE) {
+          const int qb = it % QB;
+          if (lane == 0) {
+            bar_wait(&qempty[qb], ((it / QB) & 1) ^ 1);
+            bar_arrive_tx(&qfull[qb], en.rows > 0 ? nreq * L.halves * q_tx : 0);
+          }
+          __syncwarp();
+          if (en.rows > 0 && lane < nreq) {
+            unsigned char* qa = smem + qb * L.q_bytes + q_row * 128;
+            for (int h = 0; h < L.halves; ++h) {
+              tma_load_2d(qa + h * L.q_half, &tm_q, h * kSwz, b * Q, &qfull[qb]);
+            }
+          }
+          ++it;
+        }
+        for (int t0 = 0; t0 < en.rows; t0 += kTile) {
+          for (int c = 0; c < chunks; ++c, ++kt) {
+            const int st = kt % S;
+            unsigned char* dst = ring + st * L.stage_bytes;
+            if (lane == 0) {
+              bar_wait(&empty[st], ((kt / S) & 1) ^ 1);
+              bar_arrive_tx(&full[st], L.a_bytes + (WIDE ? nreq * KH * q_tx : 0));
+              for (int h = 0; h < KH; ++h) {
+                tma_load_2d(dst + h * kHalfBytes, &tm_emb, (c * KH + h) * kSwz, row0 + t0,
+                            &full[st]);
+              }
+            }
+            __syncwarp();
+            if (WIDE && lane < nreq) {
+              for (int h = 0; h < KH; ++h) {
+                tma_load_2d(dst + L.a_bytes + h * L.q_half + q_row * 128, &tm_q,
+                            (c * KH + h) * kSwz, b * Q, &full[st]);
+              }
+            }
+          }
+        }
+      }
+    });
+  } else {  // consumer warpgroup wg, warp w4 of it
+    const int wg = warp >> 2, w4 = warp & 3, tw = threadIdx.x & 127;
+    const int g = lane >> 2;
+    walk_entries(n_ent, bounds, order, pids, lens, n_rows, doc_cap, [&](const Entry& en) {
+      for (int p0 = 0; p0 < en.cnt; p0 += per_pass) {
+        const int r0 = p0 + wg * L.per_wg;  // this warpgroup's first requester
+        const bool mine = r0 < en.cnt;
+        const bool active = mine && en.rows > 0;
+        const int r = r0 + tw;
+        const bool own = mine && tw < L.per_wg && r < en.cnt;
+        const int slot = own ? order[en.start + r] : 0;
+        const int slot_len = own ? lens[slot] : 0;
+        const int qb = WIDE ? 0 : it % QB;
+        if (!WIDE) bar_wait(&qfull[qb], (it / QB) & 1);
+        const unsigned char* qa = smem + qb * L.q_bytes + wg * kWgCols * 128;
+        float mx[16][2];
+#pragma unroll
+        for (int j = 0; j < 16; ++j) mx[j][0] = mx[j][1] = -INFINITY;
+        for (int t0 = 0; t0 < en.rows; t0 += kTile) {
+          float acc[64];
+          for (int c = 0; c < chunks; ++c, ++kt) {
+            const int st = kt % S;
+            bar_wait(&full[st], (kt / S) & 1);
+            if (active) {
+              const unsigned char* a = ring + st * L.stage_bytes;
+              const unsigned char* bq = WIDE ? a + L.a_bytes + wg * kWgCols * 128 : qa;
+              wgmma_halves<KH>(acc, a, bq, L.q_half, c > 0);
+            }
+            __syncwarp();
+            if (lane == 0) bar_arrive(&empty[st]);
+          }
+          if (active) {
+            fold_max<16>(mx, reinterpret_cast<const float(*)[4]>(acc), w4 * 16 + g,
+                         en.rows - t0);
+          }
+        }
+        if (!WIDE) {
+          __syncwarp();
+          if (lane == 0) bar_arrive(&qempty[qb]);
+          ++it;
+        }
+        if (active) {
+          // Max over this warp's 16 rows, then over the warpgroup's 4 warps,
+          // then each requester's sum over its Q columns.
+          float* sw = scr + wg * 5 * kWgCols;
+#pragma unroll
+          for (int j = 0; j < 16; ++j) {
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              float v = mx[j][h];
+              v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 4));
+              v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 8));
+              v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 16));
+              if (g == 0) sw[w4 * kWgCols + j * 8 + 2 * lane + h] = v;
+            }
+          }
+          wg_bar(1 + wg);
+          sw[4 * kWgCols + tw] = fmaxf(fmaxf(sw[tw], sw[kWgCols + tw]),
+                                       fmaxf(sw[2 * kWgCols + tw], sw[3 * kWgCols + tw]));
+          wg_bar(1 + wg);
+          if (own) {
+            const float* cm = sw + 4 * kWgCols + tw * L.qp;
+            float s = 0.f;
+#pragma unroll 8
+            for (int c = 0; c < Q; ++c) s += cm[c];
+            out[slot] = slot_len > 0 ? s : -INFINITY;
+          }
+        } else if (own) {
+          out[slot] = -INFINITY;  // an empty entry
+        }
+      }
+    });
+  }
+}
+
+// A 2D [rows, cols] bf16 tensor map with [box_rows, 64] boxes, 128-byte swizzle.
+bool make_map(CUtensorMap* m, const void* base, long long rows, int cols, int box_rows) {
+  cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 2};
+  cuuint32_t box[2] = {static_cast<cuuint32_t>(kSwz), static_cast<cuuint32_t>(box_rows)};
+  cuuint32_t elem[2] = {1, 1};
+  return cuTensorMapEncodeTiled(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base),
+                                dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int KH, bool WIDE>
+int launch(const CUtensorMap& tm_emb, const CUtensorMap& tm_q, int n_rows, int doc_cap,
+           const void* pids, const void* lens, const void* order, const void* bounds,
+           const void* n_entries, int E, int R, int Q, void* out, cudaStream_t stream,
+           const DLayout& L) {
+  auto kernel = maxsim_dedup_kernel<KH, WIDE>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L.total);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int grid = (E + kEntPerBlock - 1) / kEntPerBlock;
-  maxsim_dedup_kernel<KT><<<grid, kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(emb), n_rows, doc_cap,
-      static_cast<const int32_t*>(epid), static_cast<const int32_t*>(elen),
-      static_cast<const int32_t*>(ecnt), static_cast<const int32_t*>(eqidx),
-      static_cast<const int32_t*>(n_entries), E,
-      static_cast<const __nv_bfloat16*>(queries), Q, G, static_cast<float*>(out));
+  const int threads = 32 * (4 * L.wgs + 1);
+  int status = 0;
+  const int grid = grid_size(kernel, threads, L.total, E, &status);
+  if (status != 0) return status;
+  kernel<<<grid, threads, L.total, stream>>>(
+      tm_emb, tm_q, n_rows, doc_cap, static_cast<const int32_t*>(pids),
+      static_cast<const int32_t*>(lens), static_cast<const int32_t*>(order),
+      static_cast<const int32_t*>(bounds), static_cast<const int32_t*>(n_entries), E, R, Q,
+      static_cast<float*>(out), L);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Shared-memory bytes one block needs for this shape (the wrapper checks it).
-extern "C" long long fp_maxsim_dedup_smem_bytes(int doc_cap, int D, int Q, int G) {
-  return static_cast<long long>(make_layout(doc_cap, D, Q, G).total);
+// Shared-memory bytes one block uses for D and Q (<= 64), or -1 if no plan
+// fits (D must be a multiple of 64; any such D has one). It does not depend
+// on doc_cap.
+extern "C" long long fp_maxsim_dedup_smem_bytes(int D, int Q) {
+  DLayout L;
+  return choose_dlayout(Q, D, &L) ? static_cast<long long>(L.total) : -1;
 }
 
-// emb: [n_rows, doc_cap, D] bf16; epid, elen, ecnt: [E] int32; eqidx: [E, G] int32
-// (query rows of `queries`); n_entries: one int32 on the device; queries:
-// [B * Q, D] bf16; out: [E, G] float32. D 128 or 256, Q a multiple of 16.
-// Returns cudaGetLastError() after the launch (0 on success).
-extern "C" int fp_maxsim_dedup(const void* emb, int n_rows, int doc_cap, int D,
-                               const void* epid, const void* elen, const void* ecnt,
-                               const void* eqidx, const void* n_entries, int E,
-                               const void* queries, int Q, int G, void* out, void* stream) {
+// emb: [n_rows, doc_cap, D] bf16 with n_rows * doc_cap < 2^31; pids, lens: [n]
+// int32 (the flat [B, R] pool); order: [n] int32, the pool's slots sorted by
+// pid; bounds: [E + 1] int32 entry spans over `order`; n_entries: one int32 on
+// the device (<= E); queries: [B * Q, D] bf16 with 1 <= Q <= 64; out: [n]
+// float32, written at every slot of a live entry. D a multiple of 64, pointers
+// 16-byte aligned. Returns a CUDA error code (0 on success).
+extern "C" int fp_maxsim_dedup(const void* emb, int n_rows, int doc_cap, int D, const void* pids,
+                               const void* lens, const void* order, const void* bounds,
+                               const void* n_entries, int E, int B, int R, const void* queries,
+                               int Q, void* out, void* stream) {
   if (E == 0) return 0;
+  DLayout L;
+  if (n_rows < 1 || doc_cap < 1 || !choose_dlayout(Q, D, &L)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  CUtensorMap tm_emb, tm_q;
+  if (!make_map(&tm_emb, emb, static_cast<long long>(n_rows) * doc_cap, D, kTile) ||
+      !make_map(&tm_q, queries, static_cast<long long>(B) * Q, D, Q)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 128)
-    return launch<8>(emb, n_rows, doc_cap, epid, elen, ecnt, eqidx, n_entries, E, queries,
-                     Q, G, out, s);
-  if (D == 256)
-    return launch<16>(emb, n_rows, doc_cap, epid, elen, ecnt, eqidx, n_entries, E, queries,
-                      Q, G, out, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (L.wide) {
+    return L.kh == 2 ? launch<2, true>(tm_emb, tm_q, n_rows, doc_cap, pids, lens, order, bounds,
+                                       n_entries, E, R, Q, out, s, L)
+                     : launch<1, true>(tm_emb, tm_q, n_rows, doc_cap, pids, lens, order, bounds,
+                                       n_entries, E, R, Q, out, s, L);
+  }
+  switch (L.kh) {
+#define FP_DEDUP_CASE(K)                                                                      \
+  case K:                                                                                    \
+    return launch<K, false>(tm_emb, tm_q, n_rows, doc_cap, pids, lens, order, bounds, n_entries, \
+                            E, R, Q, out, s, L);
+    FP_DEDUP_CASE(1)
+    FP_DEDUP_CASE(2)
+    FP_DEDUP_CASE(3)
+    FP_DEDUP_CASE(4)
+    FP_DEDUP_CASE(5)
+    FP_DEDUP_CASE(6)
+#undef FP_DEDUP_CASE
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

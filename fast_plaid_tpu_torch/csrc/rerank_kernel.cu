@@ -40,52 +40,6 @@ using namespace fp_stream;
 // Four consumer warps: at D 128 their 3-stage rings fill shared memory.
 constexpr int kMaxWarps = 4;
 
-// Fold one [64, D] bf16 tile (rows t0.., the first `rows - t0` valid) into
-// the running maxima of the NT * 8 query columns.
-template <int NT>
-__device__ __forceinline__ void bf16_tile(const unsigned char* A, const unsigned char* qs,
-                                          const Layout& L, int D, int t0, int rows,
-                                          float (*mx)[2]) {
-  constexpr int MS = NT <= 4 ? 4 : 2;  // m16 slices per pass (accumulator registers)
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int lim = rows - t0;  // valid rows of this tile
-  const int KT = D / 16;
-#pragma unroll
-  for (int mp = 0; mp < 4 / MS; ++mp) {
-    if (mp * MS * 16 >= lim) break;
-    float acc[MS][NT][4];
-#pragma unroll
-    for (int m = 0; m < MS; ++m)
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[m][j][e] = 0.f;
-#pragma unroll 2
-    for (int kb = 0; kb < KT; ++kb) {
-      uint32_t bq[NT][2];
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const unsigned char* qrow = qs + (j * 8 + g) * L.q_stride + kb * 32 + t * 4;
-        bq[j][0] = *reinterpret_cast<const uint32_t*>(qrow);
-        bq[j][1] = *reinterpret_cast<const uint32_t*>(qrow + 16);
-      }
-#pragma unroll
-      for (int m = 0; m < MS; ++m) {
-        const int m16 = (mp * MS + m) * 16;
-        if (m16 < lim) {
-          uint32_t a[4];
-          ldmatrix_x4(a, A + (m16 + (lane & 15)) * L.a_stride + kb * 32 + (lane >> 4) * 16);
-#pragma unroll
-          for (int j = 0; j < NT; ++j) mma_bf16(acc[m][j], a, bq[j][0], bq[j][1]);
-        }
-      }
-    }
-#pragma unroll
-    for (int m = 0; m < MS; ++m) fold_max<NT>(mx, acc[m], (mp * MS + m) * 16 + g, lim);
-  }
-}
-
 template <int NT>
 __global__ void __launch_bounds__(64 * kMaxWarps, 1)
 maxsim_gather_kernel(const __nv_bfloat16* __restrict__ emb, int n_rows, int doc_cap, int D,
@@ -105,7 +59,9 @@ maxsim_gather_kernel(const __nv_bfloat16* __restrict__ emb, int n_rows, int doc_
     produce(smem, L, warp - L.warps, src, pids, lens, queries, B, R, Q, D, rows_of);
   } else {
     auto tile = [&](const unsigned char* A, const unsigned char* qs, int t0, int rows, int,
-                    float (*mx)[2]) { bf16_tile<NT>(A, qs, L, D, t0, rows, mx); };
+                    float (*mx)[2]) {
+      bf16_tile<NT>(A, qs, L.q_stride, L.a_stride, D, t0, rows, mx);
+    };
     auto finish = [](long long, float s) { return s; };
     consume<NT>(smem, L, warp, pids, lens, B, R, Q, out, rows_of, tile, finish);
   }
@@ -126,7 +82,7 @@ int launch(const void* emb, int n_rows, int doc_cap, int D, const void* pids, co
   const int span = kSpanPerWarp * L.warps;
   const int n_spans = B * ((R + span - 1) / span);
   int status = 0;
-  const int grid = grid_size(kernel, L, n_spans, &status);
+  const int grid = grid_size(kernel, 64 * L.warps, L.total, n_spans, &status);
   if (status != 0) return status;
   kernel<<<grid, 64 * L.warps, L.total, stream>>>(
       static_cast<const __nv_bfloat16*>(emb), n_rows, doc_cap, D,

@@ -2,9 +2,9 @@
 
 The ``.cu`` sources under ``fast_plaid_tpu_torch/csrc/`` are compiled with
 nvcc for ``sm_90a``, one nvcc process per source, all started together, and
-linked into one shared library with a plain C interface, loaded through
-ctypes. The build happens at first use, from the sources in
-the checkout only, into ``build/fast_plaid_tpu_torch/<hash>/`` beside the
+linked (with libcuda, for TMA tensor maps) into one shared library with a
+plain C interface, loaded through ctypes. The build happens at first use,
+from the sources in the checkout only, into ``build/fast_plaid_tpu_torch/<hash>/`` beside the
 package (``FASTPLAID_TORCH_BUILD_DIR`` overrides the root). The directory
 is keyed by a hash of the sources and the flags, and a file lock keeps
 parallel processes from building the same library twice.
@@ -45,23 +45,22 @@ _info: dict = {}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # (pid, own, table, scratch, out, B, W, C, Q, stream)
-    "fp_segmented_estimate": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
+    # (pid, own, table, out, B, W, C, Q, stream)
+    "fp_segmented_estimate": ([_P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
     "fp_segmented_estimate_max_q": ([], _I),
-    "fp_segmented_estimate_scratch_words": ([_I, _I, _I], ctypes.c_longlong),
     # (emb, n_rows, doc_cap, D, pids, lens, queries, B, R, Q, out, stream)
     "fp_maxsim_gather": ([_P, _I, _I, _I, _P, _P, _P, _I, _I, _I, _P, _P], _I),
     "fp_maxsim_gather_smem_bytes": ([_I, _I], ctypes.c_longlong),  # (D, Q)
     # (emb_q4, scale, n_docs, caph, D, pids, lens, queries, B, R, Q, out, stream)
     "fp_maxsim_q4_gather": ([_P, _P, _I, _I, _I, _P, _P, _P, _I, _I, _I, _P, _P], _I),
     "fp_maxsim_q4_gather_smem_bytes": ([_I, _I], ctypes.c_longlong),  # (D, Q)
-    # (emb, n_rows, doc_cap, D, epid, elen, ecnt, eqidx, n_entries, E, queries,
-    #  Q, G, out, stream)
+    # (emb, n_rows, doc_cap, D, pids, lens, order, bounds, n_entries, E, B, R,
+    #  queries, Q, out, stream)
     "fp_maxsim_dedup": (
-        [_P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P, _I, _I, _P, _P],
+        [_P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P, _I, _P, _P],
         _I,
     ),
-    "fp_maxsim_dedup_smem_bytes": ([_I, _I, _I, _I], ctypes.c_longlong),
+    "fp_maxsim_dedup_smem_bytes": ([_I, _I], ctypes.c_longlong),  # (D, Q)
 }
 
 
@@ -102,7 +101,8 @@ def _compile(sources: list[Path], out_dir: Path, lib_path: Path, log_path: Path)
     ]
     outs = [p.communicate()[0] for p in procs]
     tmp = out_dir / f".{_LIB_NAME}.{os.getpid()}.tmp"
-    link = [nvcc, *_FLAGS, "-shared", "-o", str(tmp), *[str(o) for o in objs]]
+    # -lcuda: libcuda's tensor-map encoder (cuTensorMapEncodeTiled) for TMA.
+    link = [nvcc, *_FLAGS, "-shared", "-o", str(tmp), *[str(o) for o in objs], "-lcuda"]
     failed = [(c, o) for c, o, p in zip(cmds, outs, procs) if p.returncode != 0]
     if not failed:
         proc = subprocess.run(link, capture_output=True, text=True, check=False)

@@ -5,8 +5,8 @@ pid-sorted slot table, the Q-sum of the per-query-token max of
 ``table[b, own[j], :]`` over the slot's equal-pid run suffix j >= i. At run
 heads that is the candidate's estimate; callers mask the other slots.
 
-``segmented_estimate`` launches the CUDA kernel (``csrc/estimate_kernel.cu``)
-for tensors on a GPU and runs the plain PyTorch version,
+``segmented_estimate`` launches the CUDA kernel (``csrc/estimate_kernel.cu``:
+one launch, a block per row, any C) for tensors on a GPU and runs the plain PyTorch version,
 ``segmented_estimate_plain``, for tensors on the CPU.
 """
 
@@ -87,28 +87,25 @@ def segmented_estimate(
         msg = "segmented_estimate: pid_s and own_s must be int32"
         raise TypeError(msg)
     lib = load_library()
-    if q > lib.fp_segmented_estimate_max_q() or c < 1 or b > 65535:
+    if q > lib.fp_segmented_estimate_max_q() or c < 1:
         msg = f"segmented_estimate: unsupported shape B={b}, C={c}, Q={q}"
         raise ValueError(msg)
-    if c * q * 2 > 227 * 1024:
-        msg = f"segmented_estimate: [C={c}, Q={q}] table exceeds shared memory"
-        raise ValueError(msg)
-    tbl = cell_scores.to(torch.bfloat16)
-    if not (pid_s.is_contiguous() and own_s.is_contiguous() and tbl.is_contiguous()):
+    if not (pid_s.is_contiguous() and own_s.is_contiguous()):
         msg = "segmented_estimate: inputs must be contiguous"
         raise ValueError(msg)
+    # Table rows as whole 16-byte vectors: Q padded with zeros (never summed)
+    # to 8 times the next power of two of ceil(Q / 8).
+    qp = 8 * (1 << max(0, (q + 7) // 8 - 1).bit_length())
+    tbl = cell_scores.to(torch.bfloat16)
+    if qp != q:
+        tbl = torch.nn.functional.pad(tbl, (0, qp - q))
+    tbl = tbl.contiguous()
     out = torch.empty((b, w), dtype=torch.float32, device=pid_s.device)
-    scratch = torch.empty(
-        (lib.fp_segmented_estimate_scratch_words(b, w, q),),
-        dtype=torch.float32,
-        device=pid_s.device,
-    )
     stream = torch.cuda.current_stream(pid_s.device).cuda_stream
     status = lib.fp_segmented_estimate(
         pid_s.data_ptr(),
         own_s.data_ptr(),
         tbl.data_ptr(),
-        scratch.data_ptr(),
         out.data_ptr(),
         b,
         w,

@@ -6,14 +6,16 @@ slots), so the per-query kernel (``ops/rerank_kernel.py``) reads the same
 document row many times. This module scores each row once per group of at
 most G requesters:
 
-  1. ``group_pool`` (plain PyTorch): stable-sort the [B, R] pool by pid, cut
-     each pid's run of requesters into entries of at most G, and build the
-     entry tables (pid, length, G requester query ids) and the inverse map
-     ``inv[b, r] = entry * G + slot``.
-  2. ``maxsim_gather_scores_dedup``: score every entry's row against its
-     requesters (the CUDA kernel ``csrc/rerank_dedup_kernel.cu`` on a GPU,
-     ``maxsim_gather_scores_dedup_plain`` on the CPU), then gather the entry
-     scores back to [B, R] through ``inv``.
+  1. ``_sort_pool`` (plain PyTorch): stable-sort the [B, R] pool by pid and
+     cut each pid's run of requesters into entries of at most G (a run's
+     start by ``searchsorted``, entry spans by a second one; no host sync).
+  2. ``maxsim_gather_scores_dedup``: on a GPU the CUDA kernel
+     ``csrc/rerank_dedup_kernel.cu`` scores every live entry's row against
+     its requesters and writes each slot's score in place through the sort
+     order; on the CPU ``maxsim_gather_scores_dedup_plain`` builds the JAX
+     package's entry tables (``group_pool``: pid, length, G requester query
+     ids, and ``inv[b, r] = entry * G + slot``), scores them and gathers the
+     scores back through ``inv``.
 
 The scores are those of ``maxsim_gather_scores`` up to the order of float32
 sums (bf16 inputs, float32 accumulation, length-masked token max, sum over
@@ -27,9 +29,9 @@ import os
 
 import torch
 
+from fast_plaid_tpu_torch.ops.rerank_kernel import _MAX_Q, _query_chunks
+
 __all__ = [
-    "dedup_fits",
-    "dedup_smem_bytes",
     "dedup_viable",
     "group_pool",
     "maxsim_gather_scores_dedup",
@@ -38,7 +40,6 @@ __all__ = [
 
 NEG = float("-inf")
 G_DEFAULT = 8
-_MAX_SMEM = 227 * 1024
 
 
 def dedup_viable(
@@ -73,28 +74,30 @@ def dedup_viable(
     return legal and (n // g + np_rows) <= n // 2
 
 
-def _align128(x: int) -> int:
-    return (x + 127) // 128 * 128
+def _sort_pool(pids: torch.Tensor, g: int, e_cap: int):
+    """Sort the flat pool by pid and cut each pid's run into entries of <= g.
 
-
-def dedup_smem_bytes(doc_cap: int, d: int, q: int, g: int = G_DEFAULT) -> int:
-    """Shared-memory bytes one block of ``csrc/rerank_dedup_kernel.cu`` takes
-    (its ``make_layout``): two [round_up(doc_cap, 16), D + 8] bf16 row
-    buffers, eight warps' 16 x 20 float scratch tiles and G x Q float column
-    maxima, each rounded up to 128 bytes."""
-    buf = _align128((doc_cap + 15) // 16 * 16 * (d + 8) * 2)
-    return 2 * buf + _align128(8 * 16 * 20 * 4) + _align128(g * q * 4)
-
-
-def dedup_fits(doc_cap: int, d: int, q: int, g: int = G_DEFAULT) -> bool:
-    """Does the dedup kernel's block fit in shared memory at this shape?
-
-    Its row buffers grow with doc_cap (past about 400 at D 128, Q 32), while
-    the per-query kernel's shared memory does not depend on doc_cap. Stage 6
-    takes the dedup kernel only where ``dedup_viable`` and this both hold; the
-    two compute the same scores, so the choice is by shape alone.
+    Returns (order [n] int64 sorted position -> flat slot, spid [n] sorted
+    pids, entry_id [n] int64, slot [n] int64 position within its entry,
+    bounds [e_cap + 1] int64, entry e spanning sorted positions
+    [bounds[e], bounds[e + 1]), n_entries 0-d int32). Sync-free: the entry
+    count stays on the pool's device.
     """
-    return dedup_smem_bytes(doc_cap, d, q, g) <= _MAX_SMEM
+    n = pids.numel()
+    device = pids.device
+    flat_pid = pids.reshape(n).to(torch.int32)
+    order = torch.argsort(flat_pid, stable=True)
+    spid = flat_pid[order]
+    # Position within the pid's run: index minus the run's first index.
+    idx = torch.arange(n, dtype=torch.int64, device=device)
+    pos = idx - torch.searchsorted(spid, spid)
+    is_start = pos % g == 0
+    entry_id = torch.cumsum(is_start, dim=0) - 1  # nondecreasing
+    n_entries = (entry_id[-1] + 1).to(torch.int32)
+    bounds = torch.searchsorted(
+        entry_id, torch.arange(e_cap + 1, dtype=torch.int64, device=device)
+    )
+    return order, spid, entry_id, pos % g, bounds, n_entries
 
 
 def group_pool(pids: torch.Tensor, lens: torch.Tensor, g: int, e_cap: int):
@@ -108,28 +111,9 @@ def group_pool(pids: torch.Tensor, lens: torch.Tensor, g: int, e_cap: int):
     b, r = pids.shape
     n = b * r
     device = pids.device
-    flat_pid = pids.reshape(n).to(torch.int32)
-    flat_len = lens.reshape(n).to(torch.int32)
-    order = torch.argsort(flat_pid, stable=True)
-    spid = flat_pid[order]
-    slen = flat_len[order]
+    order, spid, entry_id, slot, bounds, n_entries = _sort_pool(pids, g, e_cap)
+    slen = lens.reshape(n).to(torch.int32)[order]
     qidx = (order // r).to(torch.int32)
-
-    idx = torch.arange(n, dtype=torch.int64, device=device)
-    is_new = torch.ones(n, dtype=torch.bool, device=device)
-    is_new[1:] = spid[1:] != spid[:-1]
-    # Position within the pid's run: index minus the run's start.
-    run_start = torch.cummax(torch.where(is_new, idx, 0), dim=0).values
-    pos = idx - run_start
-    is_start = is_new | (pos % g == 0)
-    entry_id = torch.cumsum(is_start.to(torch.int64), dim=0) - 1  # nondecreasing
-    slot = pos % g
-    n_entries = (entry_id[-1] + 1).to(torch.int32)
-
-    # Entry e spans sorted positions [bounds[e], bounds[e + 1]).
-    bounds = torch.searchsorted(
-        entry_id, torch.arange(e_cap + 1, dtype=torch.int64, device=device)
-    )
     estart, eend = bounds[:-1], bounds[1:]
     valid_e = estart < eend
     esafe = torch.clamp(estart, max=n - 1)
@@ -139,12 +123,10 @@ def group_pool(pids: torch.Tensor, lens: torch.Tensor, g: int, e_cap: int):
     posg = esafe[:, None] + torch.arange(g, device=device)
     in_e = posg < eend[:, None]
     entry_qidx = torch.where(in_e, qidx[torch.clamp(posg, max=n - 1)], zero)
-
-    # Inverse of the sort permutation -> each slot's (entry, slot) address.
-    invperm = torch.empty_like(order)
-    invperm[order] = idx
-    inv = (entry_id * g + slot)[invperm].to(torch.int32).reshape(b, r)
-    return entry_pid, entry_len, entry_qidx, inv, n_entries
+    # Each slot's (entry, slot) address, scattered back through the sort.
+    inv = torch.empty(n, dtype=torch.int64, device=device)
+    inv[order] = entry_id * g + slot
+    return entry_pid, entry_len, entry_qidx, inv.to(torch.int32).reshape(b, r), n_entries
 
 
 def _score_entries_plain(
@@ -222,8 +204,11 @@ def maxsim_gather_scores_dedup(
     len <= 0, one row read per (document, group of <= g requesters).
 
     Launches the CUDA kernel for CUDA tensors (counted in
-    ``maxsim_gather_scores_dedup.launches``) and the plain version for CPU
-    tensors.
+    ``maxsim_gather_scores_dedup.launches``, once per chunk of 64 query
+    tokens) and the plain version for CPU tensors. The kernel takes any
+    doc_cap, D a multiple of 64 whose query and row tiles fit a block (128,
+    256 and 384 do), and any Q; it writes each slot's score in place, so no
+    entry table is gathered back.
     """
     if pids.device.type == "cpu":
         return maxsim_gather_scores_dedup_plain(emb_cache, pids, lens, queries, g=g)
@@ -252,56 +237,55 @@ def maxsim_gather_scores_dedup(
         if t.device != pids.device:
             msg = f"{name}: {label} is on {t.device}, not {pids.device}"
             raise ValueError(msg)
-    if d not in (128, 256) or nq % 16 or nq < 16 or not 1 <= g <= 256:
+    if d % 64 or nq < 1 or not 1 <= g <= 256 or np_rows < 1 or np_rows * doc_cap >= 2**31:
         msg = (
-            f"{name}: the kernel takes D 128 or 256, Q a positive multiple of "
-            f"16 and 1 <= g <= 256; got D={d}, Q={nq}, g={g}"
+            f"{name}: the kernel takes D a multiple of 64, Q >= 1, 1 <= g <= 256 "
+            f"and Np * doc_cap < 2^31; got D={d}, Q={nq}, g={g}, Np={np_rows}, "
+            f"doc_cap={doc_cap}"
         )
         raise ValueError(msg)
     if not emb_cache.is_contiguous() or emb_cache.data_ptr() % 16:
         msg = f"{name}: emb_cache must be contiguous and 16-byte aligned"
         raise ValueError(msg)
-    if not dedup_fits(doc_cap, d, nq, g):
-        msg = (
-            f"{name}: doc_cap={doc_cap}, D={d}, Q={nq}, g={g} needs more "
-            "shared memory than one block has"
-        )
-        raise ValueError(msg)
     lib = load_library()
+    if lib.fp_maxsim_dedup_smem_bytes(d, min(nq, _MAX_Q)) < 0:
+        msg = f"{name}: D={d} is too wide for one block's shared memory"
+        raise ValueError(msg)
     n = b * r
     e_cap = min(n, n // g + np_rows)
-    entry_pid, entry_len, entry_qidx, inv, n_entries = group_pool(pids, lens, g, e_cap)
-    entry_pid = torch.clamp(entry_pid, 0, np_rows - 1)
-    # Requesters per entry: the live slots that inv addresses (a scatter-add,
-    # which unlike bincount needs no device->host sync).
-    entry_cnt = torch.zeros(e_cap, dtype=torch.int32, device=pids.device)
-    entry_cnt.scatter_add_(
-        0, (inv.reshape(-1) // g).long(), torch.ones_like(inv.reshape(-1))
-    )
-    q2 = queries.to(torch.bfloat16).reshape(b * nq, d).contiguous()
-    ent = torch.empty((e_cap, g), dtype=torch.float32, device=pids.device)
+    order, _, _, _, bounds, n_entries = _sort_pool(pids, g, e_cap)
+    order = order.to(torch.int32)
+    bounds = bounds.to(torch.int32)
+    flat_pid = pids.reshape(n).contiguous()
+    flat_len = lens.reshape(n).contiguous()
+    q3 = queries.to(torch.bfloat16).contiguous()
     stream = torch.cuda.current_stream(pids.device).cuda_stream
-    status = lib.fp_maxsim_dedup(
-        emb_cache.data_ptr(),
-        np_rows,
-        doc_cap,
-        d,
-        entry_pid.data_ptr(),
-        entry_len.data_ptr(),
-        entry_cnt.data_ptr(),
-        entry_qidx.data_ptr(),
-        n_entries.data_ptr(),
-        e_cap,
-        q2.data_ptr(),
-        nq,
-        g,
-        ent.data_ptr(),
-        stream,
-    )
-    check(status, name)
-    maxsim_gather_scores_dedup.launches += 1
-    scores = ent.reshape(-1)[inv.reshape(-1).long()].reshape(b, r)
-    return torch.where(lens > 0, scores, NEG)
+    out = None
+    for qc in _query_chunks(q3):
+        # Slots of entries past e_cap (only out-of-range pids make any) stay -inf.
+        part = torch.full((n,), NEG, dtype=torch.float32, device=pids.device)
+        status = lib.fp_maxsim_dedup(
+            emb_cache.data_ptr(),
+            np_rows,
+            doc_cap,
+            d,
+            flat_pid.data_ptr(),
+            flat_len.data_ptr(),
+            order.data_ptr(),
+            bounds.data_ptr(),
+            n_entries.data_ptr(),
+            e_cap,
+            b,
+            r,
+            qc.data_ptr(),
+            qc.shape[1],
+            part.data_ptr(),
+            stream,
+        )
+        check(status, name)
+        maxsim_gather_scores_dedup.launches += 1
+        out = part if out is None else out.add_(part)
+    return out.reshape(b, r)
 
 
 maxsim_gather_scores_dedup.launches = 0

@@ -10,8 +10,8 @@ Port of ``fast_plaid_tpu/search/engine.py``: the same static-shape cascade
   4. per-slot approximate estimates (``ops/estimate_kernel.py``)
   5. prune to the exact-rerank pool R = n_full_scores / pool_divisor
   6. exact MaxSim over the pool: over the bf16 corpus cache through the
-     dedup kernel (``ops/rerank_dedup.py``) where ``dedup_viable`` and
-     ``dedup_fits`` hold, else the per-query kernel (``ops/rerank_kernel.py``); or decompress +
+     dedup kernel (``ops/rerank_dedup.py``) where ``dedup_viable`` holds,
+     else the per-query kernel (``ops/rerank_kernel.py``); or decompress +
      MaxSim, after the q4 prefilter (``maxsim_q4_gather_scores``) has
      narrowed the pool where only the 4-bit cache is resident
   7. final top-k
@@ -60,7 +60,6 @@ from fast_plaid_tpu_torch.ops.estimate_kernel import (
 from fast_plaid_tpu_torch.ops.maxsim import maxsim_reduce
 from fast_plaid_tpu_torch.ops.q4cache import score_q4
 from fast_plaid_tpu_torch.ops.rerank_dedup import (
-    dedup_fits,
     dedup_viable,
     maxsim_gather_scores_dedup,
 )
@@ -690,11 +689,9 @@ def search_impl(
         # Fused gather + MaxSim: candidate rows stream into shared memory
         # once and only [B, R] scores come back. Where the tile's pools
         # overlap enough (small corpus against B * R), the dedup kernel
-        # reads each (document, requester group) row once instead, as long
-        # as its doc_cap-sized row buffers fit a block's shared memory.
+        # reads each (document, requester group) row once instead.
         lens = dev.doc_lengths[p2.long()]
-        np_rows, cap = dev.emb_cache.shape[0], dev.emb_cache.shape[1]
-        if dedup_viable(np_rows, b, r, q, d) and dedup_fits(cap, d, q):
+        if dedup_viable(dev.emb_cache.shape[0], b, r, q, d):
             exact = maxsim_gather_scores_dedup(dev.emb_cache, p2, lens, queries)
         else:
             exact = maxsim_gather_scores(dev.emb_cache, p2, lens, queries)

@@ -58,13 +58,15 @@ def default_mem_budget(device: torch.device) -> int:
 def resolve_devices(device: str | list[str] | None) -> list[torch.device]:
     """Map device spec strings to torch devices.
 
-    None -> every CUDA device if present, else the CPU. Accepts "cpu",
-    "cuda", "cuda:N" and "gpu[:N]" (an alias of "cuda[:N]").
+    None -> every CUDA device; raises when there is none (the CPU is taken
+    only when asked for by name). Accepts "cpu", "cuda", "cuda:N" and
+    "gpu[:N]" (an alias of "cuda[:N]").
     """
     if device is None:
-        if torch.cuda.is_available():
-            return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
-        return [torch.device("cpu")]
+        if not torch.cuda.is_available():
+            msg = "No CUDA device available; pass device='cpu' to run on the CPU."
+            raise RuntimeError(msg)
+        return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
     specs = [device] if isinstance(device, str) else list(device)
     out: list[torch.device] = []
     for spec in specs:

@@ -177,6 +177,7 @@ def test_resolve_devices():
     with pytest.raises(RuntimeError):
         tsearch.resolve_devices("tpu")
     if not torch.cuda.is_available():
-        assert tsearch.resolve_devices(None) == [torch.device("cpu")]
+        with pytest.raises(RuntimeError):
+            tsearch.resolve_devices(None)
         with pytest.raises(RuntimeError):
             tsearch.resolve_devices("cuda:0")

@@ -7,10 +7,10 @@ they skip on a machine without one. Run them on the card with
 
 (``--noconftest``: ``tests/conftest.py`` imports jax, which the GPU machine
 need not have.) The three rerank kernels hold at rtol = atol = 1e-3
-(tensor-core accumulation order) with identical -inf patterns. Kernels 2
-and 3 stream fixed 64-row tiles, so they also hold at doc_cap 336, 1,040
-and 2,048, where the dedup kernel's layout no longer fits and stage 6
-takes kernel 2.
+(tensor-core accumulation order) with identical -inf patterns. They stream
+fixed 64-row tiles, so they also hold at doc_cap 336, 1,040 and 2,048; the
+dedup kernel at D 128, 256 and 384 too. The estimate kernel holds at 1e-4
+(float32 sums in another order) at every slot, for any table size.
 """
 
 from __future__ import annotations
@@ -23,7 +23,6 @@ from fast_plaid_tpu_torch.ops.estimate_kernel import (
     segmented_estimate_plain,
 )
 from fast_plaid_tpu_torch.ops.rerank_dedup import (
-    dedup_fits,
     maxsim_gather_scores_dedup,
     maxsim_gather_scores_dedup_plain,
 )
@@ -46,7 +45,9 @@ def cuda():
 
 @pytest.mark.parametrize(
     "b,w,c,q,hi",
-    [(4, 1000, 12, 16, 300), (3, 2049, 7, 8, 1), (2, 130, 40, 32, 50), (2, 300, 5, 100, 90)],
+    [(4, 1000, 12, 16, 300), (3, 2049, 7, 8, 1), (2, 130, 40, 32, 50), (2, 300, 5, 100, 90),
+     (3, 12_152, 4000, 32, 20_000), (4, 12_152, 90, 32, 57_639), (2, 5000, 2000, 64, 900)],
+    ids=["q16", "one_run", "q32", "q100", "table_256KB", "main_width", "table_256KB_q64"],
 )
 def test_estimate_kernel_matches_plain(cuda, b, w, c, q, hi):
     g = torch.Generator(device=cuda).manual_seed(w)
@@ -151,9 +152,9 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):
         maxsim_q4_gather_scores(q4, torch.ones(8, device=cuda), ids, ids,
                                 torch.zeros((1, 8, 40), device=cuda))
-    emb64 = torch.zeros((8, 16, 64), dtype=torch.bfloat16, device=cuda)  # D 64
+    emb40 = torch.zeros((8, 16, 40), dtype=torch.bfloat16, device=cuda)  # D % 16
     with pytest.raises(ValueError):
-        maxsim_gather_scores_dedup(emb64, ids, ids, torch.zeros((1, 16, 64), device=cuda))
+        maxsim_gather_scores_dedup(emb40, ids, ids, torch.zeros((1, 16, 40), device=cuda))
 
 
 @pytest.mark.parametrize("r", [8, 24, 256, 3608])
@@ -260,28 +261,86 @@ def test_long_queries_run_in_chunks(cuda):
            maxsim_q4_gather_scores_plain(emb_q4, scale, pids, lens, queries))
 
 
-def test_dedup_fits_mirrors_the_kernel_layout(cuda):
+@pytest.mark.parametrize("doc_cap", [336, 1040, 2048])
+@pytest.mark.parametrize("d", [128, 256, 384])
+def test_dedup_kernel_long_docs_and_widths(cuda, doc_cap, d):
+    """The dedup kernel streams 64-row tiles: any doc_cap, D 128 to 384,
+    against its plain version and kernel 2 on runs of G and G + 1, one pid
+    for every slot, a main-path-like overlap and an all-sentinel pool."""
+    g = torch.Generator(device=cuda).manual_seed(doc_cap + d)
+    n_docs, b, r, q = 40, 9, 24, 32
+    emb = torch.randn((n_docs + 1, doc_cap, d), generator=g, device=cuda).to(torch.bfloat16)
+    doc_lengths = torch.randint(1, doc_cap + 1, (n_docs + 1,), generator=g, device=cuda,
+                                dtype=torch.int32)
+    doc_lengths[:4] = torch.tensor([1, 64, 65, doc_cap], dtype=torch.int32, device=cuda)
+    doc_lengths[-1] = 0
+    for name, pids in _dedup_pools(cuda, g, n_docs, b, r).items():
+        lens = doc_lengths[pids.long()]
+        queries = torch.randn((pids.shape[0], q, d), generator=g, device=cuda)
+        before = maxsim_gather_scores_dedup.launches
+        got = maxsim_gather_scores_dedup(emb, pids, lens, queries)
+        assert maxsim_gather_scores_dedup.launches == before + 1, name
+        _close(got, maxsim_gather_scores_dedup_plain(emb, pids, lens, queries))
+        _close(got, maxsim_gather_scores(emb, pids, lens, queries))
+        if name == "all_sentinel":
+            assert torch.isneginf(got).all()
+
+
+@pytest.mark.parametrize("d", [512, 1024])
+def test_dedup_kernel_wide_rows(cuda, d):
+    """Past D 384 the query rows stream with the row tiles, chunk by chunk
+    (kernel 2 does not take D 1,024: held against the plain versions)."""
+    g = torch.Generator(device=cuda).manual_seed(d)
+    n_docs, doc_cap, b, r, q = 30, 336, 9, 24, 32
+    emb = torch.randn((n_docs + 1, doc_cap, d), generator=g, device=cuda).to(torch.bfloat16)
+    doc_lengths = torch.randint(1, doc_cap + 1, (n_docs + 1,), generator=g, device=cuda,
+                                dtype=torch.int32)
+    doc_lengths[-1] = 0
+    for name, pids in _dedup_pools(cuda, g, n_docs, b, r).items():
+        lens = doc_lengths[pids.long()]
+        queries = torch.randn((pids.shape[0], q, d), generator=g, device=cuda)
+        got = maxsim_gather_scores_dedup(emb, pids, lens, queries)
+        _close(got, maxsim_gather_scores_dedup_plain(emb, pids, lens, queries))
+        _close(got, maxsim_gather_scores_plain(emb, pids, lens, queries))
+
+
+def test_dedup_kernel_groups_and_long_queries(cuda):
+    """G from 1 to 256 (entries wider than the kernel's warps take several
+    passes) and Q 96 (two chunks whose scores add)."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    n_docs, doc_cap, d, b, r = 30, 160, 128, 40, 64
+    emb = torch.randn((n_docs + 1, doc_cap, d), generator=gen, device=cuda).to(torch.bfloat16)
+    doc_lengths = torch.randint(1, doc_cap + 1, (n_docs + 1,), generator=gen, device=cuda,
+                                dtype=torch.int32)
+    doc_lengths[-1] = 0
+    pids = torch.randint(0, n_docs + 1, (b, r), generator=gen, device=cuda, dtype=torch.int32)
+    lens = doc_lengths[pids.long()]
+    for q, gs in ((32, (1, 3, 8, 17, 256)), (96, (8,))):
+        queries = torch.randn((b, q, d), generator=gen, device=cuda)
+        want = maxsim_gather_scores_plain(emb, pids, lens, queries)
+        for g in gs:
+            _close(maxsim_gather_scores_dedup(emb, pids, lens, queries, g=g), want)
+
+
+def test_kernel_plans_do_not_depend_on_doc_cap(cuda):
     from fast_plaid_tpu_torch.ops._build import load_library
 
     lib = load_library()
-    for doc_cap in (16, 48, 160, 336, 400, 416, 1040):
-        for q, g in ((32, 8), (16, 8), (32, 4)):
-            fits = lib.fp_maxsim_dedup_smem_bytes(doc_cap, 128, q, g) <= 227 * 1024
-            assert dedup_fits(doc_cap, 128, q, g) == fits, (doc_cap, q, g)
     for q in (8, 32, 64):
         assert 0 < lib.fp_maxsim_gather_smem_bytes(128, q) <= 227 * 1024
         assert 0 < lib.fp_maxsim_q4_gather_smem_bytes(128, q) <= 227 * 1024
+        for d in (128, 256, 384, 512, 1024):
+            assert 0 < lib.fp_maxsim_dedup_smem_bytes(d, q) <= 227 * 1024
 
 
-def test_stage6_takes_kernel2_past_the_dedup_layout(cuda, monkeypatch, tmp_path):
+def test_stage6_takes_the_dedup_kernel_at_long_docs(cuda, monkeypatch, tmp_path):
     """A dedup-viable pool at doc_cap 1,040: the engine's stage 6 launches
-    kernel 2 (its counter rises, the dedup kernel's does not) and the result
-    equals the plain path's."""
+    the dedup kernel (kernel 2 with FASTPLAID_RERANK_DEDUP=0), and both give
+    the plain path's result."""
     import numpy as np
 
     from fast_plaid_tpu_torch.search import FastPlaid, engine
 
-    monkeypatch.setenv("FASTPLAID_RERANK_DEDUP", "1")
     rng = np.random.default_rng(0)
     lens = rng.integers(1000, 1031, 40)
     lens[0] = 1030
@@ -291,14 +350,15 @@ def test_stage6_takes_kernel2_past_the_dedup_layout(cuda, monkeypatch, tmp_path)
     loaded = next(iter(fp.indices.values()))
     ispec = loaded.ispec
     assert loaded.dev.emb_cache is not None and ispec.doc_cap == 1040
-    assert not dedup_fits(1040, 128, 16)
     qs = torch.from_numpy(np.stack([d[:16] for d in docs[:8]])).to(cuda)
     kw = dict(ispec=ispec, top_k=5, n_ivf_probe=4, n_full_scores=32)
-    before = (maxsim_gather_scores.launches, maxsim_gather_scores_dedup.launches)
-    k_ids, k_sc = engine.search_impl(loaded.dev, qs, None, use_rerank_kernel=True, **kw)
-    after = (maxsim_gather_scores.launches, maxsim_gather_scores_dedup.launches)
-    assert after == (before[0] + 1, before[1])
     p_ids, p_sc = engine.search_impl(loaded.dev, qs, None, use_rerank_kernel=False, **kw)
-    torch.testing.assert_close(k_sc, p_sc, rtol=1e-3, atol=1e-3)
-    assert k_ids[:, 0].cpu().tolist() == list(range(8))
+    for env, which in (("1", 1), ("0", 0)):
+        monkeypatch.setenv("FASTPLAID_RERANK_DEDUP", env)
+        before = (maxsim_gather_scores.launches, maxsim_gather_scores_dedup.launches)
+        k_ids, k_sc = engine.search_impl(loaded.dev, qs, None, use_rerank_kernel=True, **kw)
+        after = (maxsim_gather_scores.launches, maxsim_gather_scores_dedup.launches)
+        assert after == (before[0] + 1 - which, before[1] + which), env
+        torch.testing.assert_close(k_sc, p_sc, rtol=1e-3, atol=1e-3)
+        assert k_ids[:, 0].cpu().tolist() == list(range(8))
     fp.close()

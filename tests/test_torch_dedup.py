@@ -1,7 +1,8 @@
 """Deduplicated rerank parity: the port's ``ops/rerank_dedup.py`` against the
 JAX package's on the same seeded pools.
 
-* ``group_pool``: identical entry tables, ``inv`` and entry count.
+* ``group_pool``: identical entry tables, ``inv`` and entry count, also
+  where one pid takes every slot.
 * ``dedup_viable``: the same decision on a grid of (Np, B, R, Q, D), the
   chip_smoke shape included, and under each ``FASTPLAID_RERANK_DEDUP``.
 * ``maxsim_gather_scores_dedup`` (its plain version on the CPU) against the
@@ -74,6 +75,22 @@ def test_group_pool_matches_jax(b, r, n_docs, g):
     np.testing.assert_array_equal(eq[e, s], np.repeat(np.arange(b), r).reshape(b, r))
     _, counts = np.unique(pids.reshape(-1), return_counts=True)
     assert int(n_entries) == int(np.sum(-(-counts // g)))
+
+
+@pytest.mark.parametrize("g", [1, 8, 256])
+def test_group_pool_one_pid_every_slot(g):
+    """One pid takes every slot: a single run of B * R requesters cut into
+    entries of g, the same tables as the JAX package's."""
+    b, r = 6, 50
+    pids = np.full((b, r), 3, np.int32)
+    lens = np.full((b, r), 5, np.int32)
+    n = b * r
+    e_cap = min(n, n // g + 10)
+    want = [np.asarray(x) for x in jdedup.group_pool(jnp.asarray(pids), jnp.asarray(lens), g, e_cap)]
+    got = [x.numpy() for x in tdedup.group_pool(torch.from_numpy(pids), torch.from_numpy(lens), g, e_cap)]
+    for name, w, t in zip(("entry_pid", "entry_len", "entry_qidx", "inv", "n_entries"), want, got):
+        np.testing.assert_array_equal(t, w, err_msg=name)
+    assert int(got[4]) == -(-n // g)
 
 
 _GRID = list(

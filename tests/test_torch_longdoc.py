@@ -1,13 +1,13 @@
 """Long documents in the port, on the CPU.
 
-* ``dedup_fits`` / ``dedup_smem_bytes`` against the dedup kernel's layout
-  worked by hand: it fits at doc_cap 160 and 400, not at 416 or 1,040.
-* The plain versions of kernels 2 and 3 against the JAX package's Pallas
+* The plain versions of kernels 2, 3 and 4 against the JAX package's Pallas
   kernels in interpret mode at doc_cap 1,040 (ColPali-like pages, caph 520):
-  lengths 0, 1, <= caph, caph + 1 and doc_cap, the sentinel row; atol 1e-3
-  (float32 sums in another order), identical -inf patterns.
-* Stage 6 at doc_cap 1,040 on a dedup-viable pool calls the per-query
-  wrapper, never the dedup one, and gives the plain engine path's result.
+  lengths 0, 1, <= caph, caph + 1 and doc_cap, the sentinel row; for the
+  dedup kernel also pids with more than G requesters and an all-sentinel
+  pool; atol 1e-3 (float32 sums in another order), identical -inf patterns.
+* Stage 6 at doc_cap 1,040 on a dedup-viable pool calls the dedup wrapper
+  (its shared memory does not depend on doc_cap) and gives the plain engine
+  path's result.
 """
 
 from __future__ import annotations
@@ -22,6 +22,7 @@ import jax.numpy as jnp
 
 from fast_plaid_tpu import testing
 from fast_plaid_tpu.index.layout import build_emb_cache
+from fast_plaid_tpu.ops import rerank_dedup as jdedup
 from fast_plaid_tpu.ops.rerank_kernel import maxsim_gather_scores as j_rerank
 from fast_plaid_tpu.ops.rerank_kernel import maxsim_q4_gather_scores as j_q4
 from fast_plaid_tpu_torch.index import layout as tlayout
@@ -35,21 +36,6 @@ torch.set_num_threads(2)
 
 CAP = 1040
 EDGE_LENS = [0, 1, 63, 64, 65, 519, 520, 521, 1039, 1040]
-
-
-@pytest.mark.parametrize(
-    "doc_cap,want_bytes,fits",
-    [
-        # 2 * align128(round16(cap) * (128 + 8) * 2) + align128(8*16*20*4) + align128(8*32*4)
-        (160, 2 * 43_520 + 10_240 + 1_024, True),
-        (400, 2 * 108_800 + 10_240 + 1_024, True),
-        (416, 2 * 113_152 + 10_240 + 1_024, False),
-        (1040, 2 * 282_880 + 10_240 + 1_024, False),
-    ],
-)
-def test_dedup_fits_by_hand(doc_cap, want_bytes, fits):
-    assert tdedup.dedup_smem_bytes(doc_cap, 128, 32, 8) == want_bytes
-    assert tdedup.dedup_fits(doc_cap, 128, 32) is fits
 
 
 def _pool(rng, npd, b, r):
@@ -104,7 +90,54 @@ def test_kernel3_plain_matches_pallas_interpret_long_docs():
     np.testing.assert_allclose(got[fin], want[fin], rtol=0, atol=1e-3)
 
 
-def test_stage6_takes_the_per_query_kernel_past_the_dedup_layout(monkeypatch):
+def _dedup_pool(rng, case, npd, b, r):
+    """pids over documents 0..npd-2 whose lengths are EDGE_LENS (the last
+    document is the zero-length sentinel), lens those of the documents."""
+    if case == "edge_lens":
+        pids = rng.integers(0, npd - 1, (b, r)).astype(np.int32)
+        pids[0, : npd - 1] = np.arange(npd - 1)  # every length at least once
+        pids[1, :3] = npd - 1
+    elif case == "runs_past_g":  # every query asks for documents 1-4: runs of b > G
+        pids = np.tile(np.arange(r, dtype=np.int32) % 4 + 1, (b, 1))
+        pids[:, -3:] = rng.integers(5, npd - 1, (b, 3))
+    else:  # all_sentinel
+        pids = np.full((b, r), npd - 1, np.int32)
+    return pids
+
+
+@pytest.mark.parametrize("case", ["edge_lens", "runs_past_g", "all_sentinel"])
+def test_dedup_plain_matches_pallas_interpret_long_docs(case):
+    rng = np.random.default_rng(len(case))
+    npd, d, b, r, q, g = len(EDGE_LENS) + 1, 128, 12, 16, 16, 8
+    doc_lengths = np.array([*EDGE_LENS, 0], np.int32)
+    emb16 = jnp.asarray(rng.standard_normal((npd, CAP, d)), dtype=jnp.bfloat16)
+    emb_t = torch.from_numpy(np.asarray(emb16, np.float32)).to(torch.bfloat16)
+    pids = _dedup_pool(rng, case, npd, b, r)
+    lens = doc_lengths[pids]
+    queries = rng.standard_normal((b, q, d)).astype(np.float32)
+    want = np.asarray(
+        jdedup.maxsim_gather_scores_dedup(
+            emb16, jnp.asarray(pids), jnp.asarray(lens), jnp.asarray(queries),
+            g=g, e_tile=8, chunk=32, interpret=True,
+        )
+    )
+    args = (emb_t, torch.from_numpy(pids), torch.from_numpy(lens), torch.from_numpy(queries))
+    got = tdedup.maxsim_gather_scores_dedup_plain(*args, g=g).numpy()
+    per_query = maxsim_gather_scores_plain(*args).numpy()
+    for ref in (want, per_query):
+        assert np.array_equal(np.isneginf(got), np.isneginf(ref))
+        fin = np.isfinite(ref)
+        np.testing.assert_allclose(got[fin], ref[fin], rtol=1e-3, atol=1e-3)
+    n_neg = int(np.isneginf(got).sum())
+    if case == "all_sentinel":
+        assert n_neg == b * r
+    elif case == "runs_past_g":
+        assert n_neg == 0
+    else:
+        assert n_neg == int((lens == 0).sum()) >= 4
+
+
+def test_stage6_takes_the_dedup_kernel_at_long_docs(monkeypatch):
     from fast_plaid_tpu_torch.search import engine as tengine
 
     calls = []
@@ -130,11 +163,11 @@ def test_stage6_takes_the_per_query_kernel_past_the_dedup_layout(monkeypatch):
         if getattr(dev_j, f) is not None and f != "buckets"
     }
     dev_t, spec_t = tlayout.device_index_from_arrays(arrays, dataclasses.asdict(spec_j), "cpu")
-    assert spec_t.doc_cap == CAP and not tdedup.dedup_fits(CAP, 128, 16)
+    assert spec_t.doc_cap == CAP
     q = torch.from_numpy(np.stack([d[:16] for d in docs[:4]]))
     kw = dict(ispec=spec_t, top_k=5, n_ivf_probe=4, n_full_scores=32)
     k_ids, k_sc = tengine.search_impl(dev_t, q, None, use_rerank_kernel=True, **kw)
-    assert calls == ["per_query"]
+    assert calls == ["dedup"]
     p_ids, p_sc = tengine.search_impl(dev_t, q, None, use_rerank_kernel=False, **kw)
     np.testing.assert_allclose(k_sc.numpy(), p_sc.numpy(), rtol=1e-5, atol=1e-5)
     assert k_ids[:, 0].tolist() == [0, 1, 2, 3]
