@@ -66,7 +66,36 @@ Phases, each of which raises (non-zero exit) on failure:
    ``FASTPLAID_RERANK_DEDUP=0``, so kernel 2 runs there too) and on the
    default constructor (kernel 3 prefilters). Planted hit@1 1.0, the
    kernel's counter risen, one tile's kernel path = plain path.
-8. Print the kernels' JSON record, then the contract line
+   Phase 3 also counts, over every tile, the query-token rows whose probed
+   cells from ``torch.topk`` differ from a stable sort's (the probe's tie
+   order on the card), and where any do, whether a stable probe moves a
+   top-10.
+8. A length-skewed corpus: 57,638 documents of synthetic lognormal lengths
+   (median 90, sigma 0.6) in [8, 300], d 128, seeded, through ``create``
+   and the resident instance, where the loader picks the layout by the
+   cache budget. At the default budget it keeps the single cap of 304 with
+   its bf16 cache. At a budget of the bucketed bf16 caches' size it buckets
+   (caps 96 / 176 / 304), and stage 6 runs once per bucket a tile: the
+   dedup kernel where its gate holds (all three buckets here), kernel 2
+   with ``FASTPLAID_RERANK_DEDUP=0``. At a budget of the q4 cache's size
+   it keeps the single cap with the q4 tier. Each: planted hit@1 1.0, the
+   launches of one tile counted, kernel = plain up to ties on the tile (and
+   on each bucket's inputs), the quota drops printed.
+9. ``approx_mode="tokens"`` on the main index (run inside phase 3, before
+   the index is mutated): 256 random queries and the 64 probes, the tile
+   timed beside ``cells``; and a small coarse index (128 documents, 32
+   partitions) on which ``auto`` resolves to ``tokens``. Planted hit@1 1.0.
+10. Builds: ``build_memory_index_flat`` of the main corpus as a tensor on
+   the card (the device build), held against the host build given its
+   centroids and codec (codes equal except at bf16 near-ties, residuals
+   equal at equal codes, IVF cells equal as sets), then searched resident
+   (planted hit@1 1.0, the create index's planted top-1, top-10 lists of
+   equal exact quality), its seconds beside ``create``'s;
+   ``build_memory_index_streaming`` of 522,931 documents (lengths uniform
+   in [80, 160]) from a chunk generator that draws on the card, searched
+   resident (kernel 2 at stage 6: the dedup gate fails there), with its
+   seconds and peak device memory.
+11. Print the kernels' JSON record, then the contract line
    ``{"ok": true, "device": {...}}`` as the last line.
 
 Every tile timed per path also gets its device time by kernel
@@ -79,6 +108,7 @@ kernel launch included) is an error for the whole run.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import datetime
 import json
 import os
@@ -502,6 +532,23 @@ def planted_corpus(n_docs: int, seed: int, lo: int = 80, hi: int = 160):
     rng = np.random.default_rng(seed)
     lens = rng.integers(lo, hi + 1, size=n_docs)
     lens[0] = hi  # the longest length is always present: doc_cap is fixed
+    return corpus_of_lengths(lens, rng), rng
+
+
+def skewed_lengths(n_docs: int, rng, median: int = 90, sigma: float = 0.6,
+                   lo: int = 8, hi: int = 300) -> np.ndarray:
+    """Lognormal document lengths (median 90 tokens, sigma 0.6) clipped to
+    [8, 300], the longest always present. A synthetic skew that drives the
+    length-bucketed layout; it is not taken from any public corpus."""
+    lens = np.clip(np.round(median * np.exp(sigma * rng.standard_normal(n_docs))), lo, hi)
+    lens = lens.astype(np.int64)
+    lens[0] = hi
+    return lens
+
+
+def corpus_of_lengths(lens: np.ndarray, rng) -> list:
+    """Unit-norm tokens for documents of these lengths, views of one flat
+    array."""
     total = int(lens.sum())
     flat = np.empty((total, DIM), np.float32)
     block = 1 << 20
@@ -509,8 +556,7 @@ def planted_corpus(n_docs: int, seed: int, lo: int = 80, hi: int = 160):
         x = rng.standard_normal((min(block, total - s), DIM), dtype=np.float32)
         flat[s : s + x.shape[0]] = x / np.linalg.norm(x, axis=-1, keepdims=True)
     offsets = np.concatenate([[0], np.cumsum(lens)])
-    docs = [flat[offsets[i] : offsets[i + 1]] for i in range(n_docs)]
-    return docs, rng
+    return [flat[offsets[i] : offsets[i + 1]] for i in range(len(lens))]
 
 
 def same_topk(a_ids, a_sc, b_ids, b_sc) -> tuple[bool, float]:
@@ -594,6 +640,8 @@ def api_search(fp, queries, counters, n_queries, probe_pids, label, need,
         "qps": len(queries) / search_s,
         "hit1": hit1,
         "ids": np.asarray([[p for p, _ in r] for r in results]),
+        "scores": scores,
+        "stats": stats,
     }
 
 
@@ -669,10 +717,12 @@ class Recorder:
         self.module, self.name = module, name
         self.fn = getattr(module, name)
         self.args = None
+        self.calls: list = []  # the arguments of every call
 
     def __enter__(self):
         def inner(*args, **kwargs):
             self.args = args
+            self.calls.append(args)
             return self.fn(*args, **kwargs)
 
         setattr(self.module, self.name, inner)
@@ -727,7 +777,497 @@ def meta_row(i: int) -> dict:
     }
 
 
-def phase_resident(dev, index_dir, docs, queries, n_queries, probe_pids, counters):
+def probe_ties(dev, loaded, queries, kw) -> dict:
+    """The probe's tie order on the card: over every tile of these queries,
+    the query-token rows whose probed cell set from ``torch.topk`` differs
+    from a stable sort's. Where any does, every tile is searched again with
+    a stable probe and the top-10 compared."""
+    import torch
+
+    from fast_plaid_tpu_torch.search import engine
+
+    def stable_topk(x, k):
+        vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+        return vals[:, :k], idx[:, :k]
+
+    diffs = rows = ties = 0
+    tiles = [torch.from_numpy(queries[s : s + 256].astype(np.float16)).to(dev)
+             for s in range(0, len(queries), 256)]
+    with torch.inference_mode():
+        for tile in tiles:
+            _, ps = engine._probe_scores(loaded.dev, tile.float(), loaded.ispec.n_partitions)
+            flat = ps.reshape(-1, ps.shape[-1])
+            _, idx = engine._probe_topk(flat, N_PROBE)
+            vals_s, idx_s = stable_topk(flat, N_PROBE + 1)
+            same = (torch.sort(idx, dim=-1).values
+                    == torch.sort(idx_s[:, :N_PROBE], dim=-1).values).all(dim=-1)
+            diffs += int((~same).sum())
+            ties += int((vals_s[:, N_PROBE - 1] == vals_s[:, N_PROBE]).sum())
+            rows += flat.shape[0]
+    moved = 0
+    if diffs:
+        with torch.inference_mode():
+            for tile in tiles:
+                a = engine.search_impl(loaded.dev, tile, None, use_estimate_kernel=True,
+                                       use_rerank_kernel=True, **kw)
+                real = engine._probe_topk
+                engine._probe_topk = stable_topk
+                try:
+                    b = engine.search_impl(loaded.dev, tile, None, use_estimate_kernel=True,
+                                           use_rerank_kernel=True, **kw)
+                finally:
+                    engine._probe_topk = real
+                moved += int((a[0] != b[0]).any(dim=-1).sum())
+    log(f"# [probe ties] {rows} query-token rows (bf16 table, Kp "
+        f"{loaded.dev.centroids.shape[0]}): {ties} with the {N_PROBE}-th and "
+        f"{N_PROBE + 1}-th scores tied, {diffs} whose torch.topk cell set differs from a "
+        f"stable sort's; queries whose top-{TOP_K} moves under a stable probe: {moved}")
+    return {"rows": rows, "ties": ties, "diffs": diffs, "top10_moved": moved}
+
+
+def phase_tokens(dev, fp, loaded, queries, n_queries, probe_pids, counters, cells_tile_ms,
+                 seed) -> dict:
+    """Phase 9: ``approx_mode="tokens"`` on the main index (256 random queries
+    and the 64 planted probes, timed beside ``cells``), and a small coarse
+    index on which ``auto`` resolves to ``tokens`` (128 documents of 32-64
+    tokens, 32 partitions, ``n_full_scores=128``; every document probes for
+    itself). Planted hit@1 must be 1.0 on both."""
+    import torch
+
+    from fast_plaid_tpu_torch import testing
+    from fast_plaid_tpu_torch.search import engine
+    from fast_plaid_tpu_torch.search.searcher import last_search_stats
+    from fast_plaid_tpu_torch.testing import MemoryIndex
+
+    kw = dict(top_k=TOP_K, n_full_scores=N_FULL, n_ivf_probe=N_PROBE, show_progress=False)
+    sel = np.concatenate([queries[:256], queries[n_queries:]])
+    fp.search(sel[:8], approx_mode="tokens", **kw)  # warm-up
+    torch.cuda.synchronize()
+    counters.zero()
+    t0 = time.perf_counter()
+    results = fp.search(sel, approx_mode="tokens", **kw)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    stats = last_search_stats()
+    if stats["approx_mode"] != "tokens":
+        raise AssertionError(f"tokens: the search ran {stats['approx_mode']}")
+    hit1 = float(np.mean([results[256 + i][0][0] == int(p) for i, p in enumerate(probe_pids)]))
+    log(f"# [tokens] {len(sel)} queries in {dt:.3f} s = {len(sel) / dt:.1f} QPS; planted hit@1 "
+        f"{hit1:.4f}; launches {counters.read()}; stats {stats}")
+    if hit1 != 1.0:
+        raise AssertionError(f"tokens: planted hit@1 {hit1} != 1.0")
+    ekw = dict(engine_kwargs(loaded, fp.mem_budget), approx_mode="tokens", rank_admit=0)
+    tile = torch.from_numpy(queries[:256].astype(np.float16)).to(dev)
+
+    def run_tile():
+        with torch.inference_mode():
+            return engine.search_impl(loaded.dev, tile, None, use_estimate_kernel=True,
+                                      use_rerank_kernel=True, **ekw)
+
+    tile_ms = tile_latency(run_tile, "tokens", n=3)
+    log(f"# [tokens] tile p50 {tile_ms[0]:.3f} ms against cells {cells_tile_ms[0]:.3f} ms")
+
+    rng = np.random.default_rng(seed + 31)
+    docs = testing.random_documents(rng, 128, 64, DIM, variable=True)
+    dev_s, spec_s = testing.build_memory_index(docs, seed=3, k=32, device=dev, emb_cache=True)
+    small = MemoryIndex(dev_s, spec_s, dev)
+    res_s = small.search(docs, top_k=5, n_full_scores=128, n_ivf_probe=N_PROBE)
+    stats_s = last_search_stats()
+    hit_s = float(np.mean([r[0][0] == i for i, r in enumerate(res_s)]))
+    log(f"# [tokens, auto] coarse index ({spec_s.n_docs} docs, K {spec_s.n_partitions}, p90 cell "
+        f"{np.quantile(small.loaded.ivf_lengths_host, 0.9):.0f} docs): auto -> "
+        f"{stats_s['approx_mode']}; planted hit@1 {hit_s:.4f} over {len(docs)} documents")
+    if stats_s["approx_mode"] != "tokens" or hit_s != 1.0:
+        raise AssertionError(f"tokens via auto: {stats_s['approx_mode']}, hit@1 {hit_s}")
+    return {"qps": len(sel) / dt, "hit1": hit1, "tile_ms": tile_ms, "auto_hit1": hit_s}
+
+
+def bucket_kernel_checks(dd_calls, k2_calls) -> list:
+    """The stage-6 kernels against their plain versions on each bucket's
+    inputs of one tile (timed for the largest bucket)."""
+    out = []
+    for i, args in enumerate(dd_calls):
+        out.append(check_dedup(*args, f"bucket{i}_cap{args[0].shape[1]}", timing=i == 0))
+    for i, args in enumerate(k2_calls):
+        out.append(check_rerank(*args, f"bucket{i}_cap{args[0].shape[1]}", timing=i == 0))
+    return out
+
+
+def phase_skewed(dev, counters, seed: int, n_docs: int = 57_638, n_queries: int = 1280) -> dict:
+    """Phase 8: a length-skewed corpus on the resident instance. Synthetic
+    lengths (lognormal, median 90, sigma 0.6, in [8, 300]), d 128, seeded.
+    The loader picks the layout by the cache budget
+    (``load.choose_length_buckets``): at the default budget the single cap
+    of 304 with its bf16 cache; at a budget of the bucketed bf16 caches'
+    size, length buckets, searched with the dedup kernel once per bucket a
+    tile and then with ``FASTPLAID_RERANK_DEDUP=0`` (kernel 2 once per
+    bucket); at a budget of the q4 cache's size, below the bucketed caches',
+    the single cap with the q4 tier. Planted hit@1 1.0 and kernel = plain
+    up to ties on each."""
+    import torch
+
+    from fast_plaid_tpu_torch.index.layout import emb_cache_bytes
+    from fast_plaid_tpu_torch.search import FastPlaid, engine
+    from fast_plaid_tpu_torch.search.load import layout_cache_bytes
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed + 41)
+    lens = skewed_lengths(n_docs, rng)
+    docs = corpus_of_lengths(lens, rng)
+    probe_pids = rng.choice(np.nonzero(lens >= Q_LEN)[0], 64)
+    rand_q = rng.standard_normal((n_queries, Q_LEN, DIM), dtype=np.float32)
+    rand_q /= np.linalg.norm(rand_q, axis=-1, keepdims=True)
+    probes = np.stack([docs[p][:Q_LEN] for p in probe_pids])
+    queries = np.concatenate([rand_q, probes])
+    sizes = layout_cache_bytes(lens, DIM, 4)
+    index_dir = os.path.join(ROOT, "build", "chip_smoke_skewed_index")
+    shutil.rmtree(index_dir, ignore_errors=True)
+    tile = torch.from_numpy(queries[:256].astype(np.float16)).to(dev)
+    out: dict = {}
+
+    def open_at(budget):
+        fp = FastPlaid(index_dir, device=str(dev), low_memory=False,
+                       emb_cache_budget_bytes=budget)
+        loaded = fp.indices[str(dev)]
+        kw = engine_kwargs(loaded, fp.mem_budget)
+
+        def res_tile(k, with_stats=False):
+            return engine.search_impl(loaded.dev, tile, None, use_estimate_kernel=k,
+                                      use_rerank_kernel=k, with_stats=with_stats, **kw)
+
+        return fp, loaded, res_tile
+
+    try:
+        fp = FastPlaid(index_dir, device=str(dev), low_memory=False)
+        fp.create(docs, show_progress=False)
+        torch.cuda.synchronize()
+        out["create_s"] = time.perf_counter() - t0
+        fp.close()
+        log(f"# [skewed] {n_docs} docs, {int(lens.sum())} tokens (lengths p50 "
+            f"{np.median(lens):.0f}, p90 {np.quantile(lens, 0.9):.0f}, max {lens.max()}), "
+            f"corpus + create {out['create_s']:.2f} s; caches: bf16 one cap "
+            f"{sizes['bf16'] / 1e9:.3f} GB, bf16 buckets {sizes['bf16_buckets'] / 1e9:.3f} GB, "
+            f"q4 {sizes['q4'] / 1e9:.3f} GB")
+        if not sizes["q4"] < sizes["bf16_buckets"] < sizes["bf16"]:
+            raise AssertionError(f"skewed: cache sizes out of order {sizes}")
+
+        fp, loaded, res_tile = open_at(None)
+        if loaded.ispec.bucket_caps or loaded.dev.emb_cache is None:
+            raise AssertionError("skewed, default budget: not the single-cap bf16 cache")
+        log(f"# [skewed, one cap] the default budget keeps doc_cap {loaded.ispec.doc_cap} "
+            f"with the bf16 cache")
+        res = api_search(fp, queries, counters, n_queries, probe_pids, "skewed, one cap",
+                         ("segmented_estimate",), expect_cells=False)
+        res["diff"], _ = compare_tile("skewed, one cap", res_tile)
+        res["tile_ms"] = tile_latency(lambda: res_tile(True), "skewed, one cap")
+        out["one_cap"] = res
+        fp.close()
+        torch.cuda.empty_cache()
+
+        fp, loaded, res_tile = open_at(sizes["bf16_buckets"])
+        ispec = loaded.ispec
+        n_b = len(ispec.bucket_caps)
+        log(f"# [skewed, bucketed] budget {sizes['bf16_buckets'] / 1e9:.3f} GB: buckets "
+            f"{ispec.bucket_caps} with {ispec.bucket_counts} docs, bf16 caches "
+            f"{emb_cache_bytes(ispec) / 1e9:.3f} GB")
+        if not n_b or any(bk.emb is None for bk in loaded.dev.buckets):
+            raise AssertionError("skewed: the bucketed budget did not bucket with caches")
+        quotas = [engine._bucket_quota(N_FULL // 2, ispec, i) for i in range(n_b)]
+        viable = [engine.dedup_viable(bk.emb.shape[0], 256, qb, Q_LEN, DIM)
+                  for bk, qb in zip(loaded.dev.buckets, quotas)]
+        log(f"# [skewed] quotas at R {N_FULL // 2}: {quotas}; dedup_viable {viable}")
+
+        def one_tile_launches():
+            counters.zero()
+            with torch.inference_mode():
+                stats = res_tile(True, with_stats=True)[-1]
+            torch.cuda.synchronize()
+            return counters.read(), int(stats[:, 1].sum())
+
+        res = api_search(fp, queries, counters, n_queries, probe_pids, "skewed, bucketed",
+                         ("segmented_estimate", "maxsim_gather_scores_dedup"), expect_cells=False)
+        launches, drops = one_tile_launches()
+        log(f"# [skewed, bucketed] one tile: launches {launches}; quota drops {drops} "
+            f"(API search of {len(queries)} queries: cap_overflow_slots "
+            f"{res['stats']['cap_overflow_slots']})")
+        if launches["maxsim_gather_scores_dedup"] != sum(viable) or (
+                launches["maxsim_gather_scores"] != n_b - sum(viable)):
+            raise AssertionError(f"skewed: stage-6 launches {launches} for gates {viable}")
+        res["diff"], _ = compare_tile("skewed, bucketed", res_tile)
+        res["tile_ms"] = tile_latency(lambda: res_tile(True), "skewed, bucketed")
+        res["quota_drops"] = drops
+        with Recorder(engine, "maxsim_gather_scores_dedup") as dd, Recorder(
+                engine, "maxsim_gather_scores") as k2:
+            with torch.inference_mode():
+                res_tile(True)
+        res["kernels"] = bucket_kernel_checks(dd.calls, k2.calls)
+        out["bucketed"] = res
+
+        os.environ["FASTPLAID_RERANK_DEDUP"] = "0"
+        try:
+            res = api_search(fp, queries, counters, n_queries, probe_pids,
+                             "skewed, bucketed, dedup off", ("maxsim_gather_scores",),
+                             expect_cells=False)
+            launches, _ = one_tile_launches()
+            log(f"# [skewed, bucketed, dedup off] one tile: launches {launches}")
+            if launches["maxsim_gather_scores"] != n_b or launches["maxsim_gather_scores_dedup"]:
+                raise AssertionError(f"skewed, dedup off: stage-6 launches {launches}")
+            res["diff"], _ = compare_tile("skewed, bucketed, dedup off", res_tile)
+            res["tile_ms"] = tile_latency(lambda: res_tile(True), "skewed, bucketed, dedup off")
+            with Recorder(engine, "maxsim_gather_scores") as k2:
+                with torch.inference_mode():
+                    res_tile(True)
+            res["kernels"] = bucket_kernel_checks([], k2.calls)
+        finally:
+            del os.environ["FASTPLAID_RERANK_DEDUP"]
+        out["bucketed_k2"] = res
+        fp.close()
+        torch.cuda.empty_cache()
+
+        fp, loaded, res_tile = open_at(sizes["q4"])
+        if (loaded.ispec.bucket_caps or loaded.dev.emb_cache is not None
+                or loaded.dev.emb_q4 is None):
+            raise AssertionError("skewed, q4 budget: not the single cap with the q4 tier")
+        log(f"# [skewed, q4 tier] budget {sizes['q4'] / 1e9:.3f} GB: one cap with the q4 "
+            f"cache {tuple(loaded.dev.emb_q4.shape)}")
+        res = api_search(fp, queries, counters, n_queries, probe_pids, "skewed, q4 tier",
+                         ("segmented_estimate", "maxsim_q4_gather_scores"), expect_cells=False)
+        res["diff"], _ = compare_tile("skewed, q4 tier", res_tile)
+        res["tile_ms"] = tile_latency(lambda: res_tile(True), "skewed, q4 tier", n=10)
+        out["q4_tier"] = res
+        fp.close()
+
+        for name in ("bucketed", "q4_tier"):
+            agree = float(np.mean([len(set(a) & set(b)) / TOP_K
+                                   for a, b in zip(out[name]["ids"], out["one_cap"]["ids"])]))
+            log(f"# [skewed] top-{TOP_K} overlap, {name} vs one cap: {agree:.4f}")
+    finally:
+        shutil.rmtree(index_dir, ignore_errors=True)
+    return out
+
+
+def true_maxsim(flat_dev, starts, pids, queries_dev) -> "torch.Tensor":
+    """Exact MaxSim in float32 of each query against documents of the
+    original (uncompressed) corpus: [B, K] pids -> [B, K] scores."""
+    import torch
+
+    out = torch.empty(pids.shape, dtype=torch.float32)
+    for b in range(pids.shape[0]):
+        for j, p in enumerate(pids[b]):
+            doc = flat_dev[starts[p] : starts[p + 1]]
+            out[b, j] = (queries_dev[b] @ doc.t()).amax(dim=1).sum()
+    return out
+
+
+def ivf_keys(d, k: int, n_docs: int) -> np.ndarray:
+    """An index's IVF as int64 keys cell * (n_docs + 1) + pid."""
+    off = d.ivf_offsets[:k].cpu().numpy().astype(np.int64)
+    ln = d.ivf_lengths[:k].cpu().numpy().astype(np.int64)
+    first = np.repeat(np.cumsum(ln) - ln, ln)
+    pos = np.repeat(off, ln) + np.arange(int(ln.sum())) - first
+    pids = d.ivf.cpu().numpy()[pos].astype(np.int64)
+    return np.repeat(np.arange(k, dtype=np.int64), ln) * (n_docs + 1) + pids
+
+
+def same_build(got, want, spec, flat_dev, starts) -> dict:
+    """Two builds of one corpus at the same centroids and codec: codes equal
+    except where the two centroids' bf16 scores tie (1e-5), at most one
+    token in 1,000; packed residuals equal byte for byte wherever the codes
+    agree; IVF cells equal as sets except for the (cell, document) entries
+    of differing codes."""
+    import torch
+
+    from fast_plaid_tpu_torch.ops import codec
+
+    k, n = spec.n_partitions, spec.n_docs
+    if got.codes.shape != want.codes.shape or not torch.equal(got.doc_lengths, want.doc_lengths):
+        raise AssertionError("device build: layout differs from the host build")
+    iota = torch.arange(got.codes.shape[1], device=got.codes.device)
+    valid = iota[None, :] < got.doc_lengths[:, None]
+    differ = (got.codes != want.codes) & valid
+    n_tok, n_diff = int(valid.sum()), int(differ.sum())
+    if n_diff > max(3, n_tok // 1000):
+        raise AssertionError(f"device build: {n_diff} of {n_tok} codes differ from the host build")
+    rows, cols = torch.nonzero(differ, as_tuple=True)
+    tie = 0.0
+    if n_diff:
+        x = flat_dev[torch.from_numpy(starts[:-1]).to(flat_dev.device)[rows] + cols]
+        sc = codec.bf16_matmul(x, got.centroids[:k].t())
+        ca, cb = got.codes[rows, cols].long(), want.codes[rows, cols].long()
+        tie = float((sc.gather(1, ca[:, None]) - sc.gather(1, cb[:, None])).abs().max())
+        if tie > 1e-5:
+            raise AssertionError(f"device build: a code differs off a near-tie ({tie})")
+    shape = (*got.codes.shape, -1)
+    res_off = int(((got.residuals.view(shape) != want.residuals.view(shape)).any(-1)
+                   & valid & ~differ).sum())
+    if res_off:
+        raise AssertionError(f"device build: {res_off} tokens' residuals differ at equal codes")
+    keys_got, keys_want = ivf_keys(got, k, n), ivf_keys(want, k, n)
+    xor = np.setxor1d(keys_got, keys_want)
+    pid = rows.cpu().numpy().astype(np.int64)
+    allowed = np.concatenate([c.cpu().numpy().astype(np.int64) * (n + 1) + pid
+                              for c in (got.codes[rows, cols], want.codes[rows, cols])])
+    if not np.isin(xor, allowed).all():
+        raise AssertionError("device build: IVF cells differ from the host build's as sets")
+    return {"tokens": n_tok, "codes_differ": n_diff, "max_tie": tie,
+            "ivf_entries": int(keys_got.size), "ivf_differ": int(xor.size)}
+
+
+def phase_device_build(dev, docs, queries, n_queries, probe_pids, counters, create_res) -> dict:
+    """Phase 10a: ``build_memory_index_flat`` of the main corpus as a tensor on
+    the card (the device build), held against the host build of the same
+    corpus given the device build's centroids and codec (``same_build``),
+    then resident search: planted hit@1 1.0 with the ``create`` index's
+    top-1. On the random queries, whose top scores are all near-ties, the
+    two indexes' top-10 lists must be of equal exact quality: their mean
+    exact float32 MaxSim over the original tokens within twice the create
+    index's largest codec error of a returned score."""
+    import torch
+
+    from fast_plaid_tpu_torch import testing
+    from fast_plaid_tpu_torch.index import device_build
+    from fast_plaid_tpu_torch.index import ivf as ivf_mod
+    from fast_plaid_tpu_torch.index.builder import compress_tokens
+    from fast_plaid_tpu_torch.index.layout import to_device
+    from fast_plaid_tpu_torch.testing import MemoryIndex
+
+    lens = np.asarray([len(d) for d in docs], np.int64)
+    starts = np.concatenate([[0], np.cumsum(lens)])
+    flat = np.concatenate(docs)
+    flat_dev = torch.from_numpy(flat).to(dev)
+    trained = []
+    real_codec = device_build.train_codec_device
+
+    def keep_codec(*args, **kwargs):
+        trained.append(real_codec(*args, **kwargs))
+        return trained[-1]
+
+    device_build.train_codec_device = keep_codec
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        idx, ispec = testing.build_memory_index_flat(flat_dev, lens, nbits=4, seed=0,
+                                                     emb_cache=True, verbose=True)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+    finally:
+        device_build.train_codec_device = real_codec
+    log(f"# [device build] {len(docs)} docs in {build_s:.2f} s (bf16 cache included; create "
+        f"took {create_res['create_s']:.2f} s); {ispec}")
+
+    t0 = time.perf_counter()
+    cent = idx.centroids[: ispec.n_partitions].cpu().numpy()
+    cutoffs = trained[0].bucket_cutoffs.cpu().numpy()
+    codes_h, packed_h = compress_tokens(flat, cent, cutoffs, 4, device=dev)
+    ivf_h, ivf_len_h = ivf_mod.build_ivf(codes_h, lens, ispec.n_partitions)
+    host, hspec = to_device(
+        centroids=cent, bucket_weights=trained[0].bucket_weights.cpu().numpy(),
+        codes=codes_h, residuals=packed_h, doc_lengths=lens, ivf=ivf_h,
+        ivf_lengths=ivf_len_h, nbits=4, device=dev)
+    del codes_h, packed_h, ivf_h
+    host_s = time.perf_counter() - t0
+    if dataclasses.replace(hspec, cell_cap=0) != dataclasses.replace(ispec, cell_cap=0):
+        raise AssertionError(f"device build: spec {ispec} differs from the host build's {hspec}")
+    same = same_build(idx, host, ispec, flat_dev, starts)
+    log(f"# [device build] against the host build at its centroids and codec ({host_s:.2f} s): "
+        f"{same['codes_differ']} of {same['tokens']} codes differ (largest bf16 score gap "
+        f"{same['max_tie']:.2e}), residuals equal at equal codes, {same['ivf_differ']} of "
+        f"{same['ivf_entries']} IVF entries differ")
+    del host
+    torch.cuda.empty_cache()
+
+    mem = MemoryIndex(idx, ispec, dev)
+    res = api_search(mem, queries, counters, n_queries, probe_pids, "device build",
+                     ("segmented_estimate", "maxsim_gather_scores_dedup"))
+    if not np.array_equal(res["ids"][n_queries:, 0], create_res["ids"][n_queries:, 0]):
+        raise AssertionError("device build: planted top-1 differs from the create index")
+    nq = min(256, n_queries)
+    q_dev = torch.from_numpy(queries[:nq]).to(dev)
+    a_ids, b_ids = res["ids"][:nq], create_res["ids"][:nq]
+    ta = true_maxsim(flat_dev, starts, a_ids, q_dev).numpy()
+    tb = true_maxsim(flat_dev, starts, b_ids, q_dev).numpy()
+    err = float(np.abs(tb - create_res["scores"][:nq]).max())
+    gap = float(ta.mean() - tb.mean())
+    agree = float(np.mean([len(set(a) & set(b)) / TOP_K for a, b in zip(a_ids, b_ids)]))
+    log(f"# [device build] over {nq} random queries: top-{TOP_K} overlap with the create index "
+        f"{agree:.4f}; mean exact MaxSim of the top-{TOP_K} {ta.mean():.4f} (device build) vs "
+        f"{tb.mean():.4f} (create), gap {gap:+.4f}; the create index's codec error of a "
+        f"returned score <= {err:.4f}")
+    if abs(gap) > 2 * err:
+        raise AssertionError(f"device build: top-{TOP_K} quality differs beyond near-ties ({gap})")
+    del mem, idx, flat_dev
+    torch.cuda.empty_cache()
+    return {"build_s": build_s, "qps": res["qps"], "hit1": res["hit1"], "overlap": agree,
+            "gap": gap, "same": same}
+
+
+def phase_streaming(dev, counters, seed: int, n_docs: int = 522_931) -> dict:
+    """Phase 10b: ``build_memory_index_streaming`` at 522,931 documents
+    (quora scale; lengths uniform in [80, 160], d 128) from a chunk generator
+    that draws each 4,096-document block on the card from its own seed, then
+    resident search (stage 6 is kernel 2: the dedup gate fails at this
+    corpus). Planted hit@1 1.0; build seconds and peak device memory."""
+    import torch
+
+    from fast_plaid_tpu_torch.index.streaming import build_memory_index_streaming
+    from fast_plaid_tpu_torch.testing import MemoryIndex
+
+    rng = np.random.default_rng(seed + 51)
+    lens = rng.integers(80, 161, size=n_docs).astype(np.int64)
+    lens[0] = 160
+    starts = np.concatenate([[0], np.cumsum(lens)])
+    blk = 4096
+
+    def block(bi):
+        d0, d1 = bi * blk, min((bi + 1) * blk, n_docs)
+        g = torch.Generator(device=dev).manual_seed(seed * 100_003 + bi)
+        x = torch.randn((int(starts[d1] - starts[d0]), DIM), generator=g, device=dev)
+        return x / torch.linalg.vector_norm(x, dim=-1, keepdim=True)
+
+    def chunk_gen(d0, d1):
+        parts = []
+        for bi in range(d0 // blk, (d1 - 1) // blk + 1):
+            base = starts[bi * blk]
+            lo, hi = max(d0, bi * blk), min(d1, (bi + 1) * blk)
+            parts.append(block(bi)[starts[lo] - base : starts[hi] - base])
+        return torch.cat(parts) if len(parts) > 1 else parts[0]
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    idx, ispec = build_memory_index_streaming(chunk_gen, lens, seed=seed, emb_cache=True,
+                                              verbose=True)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    log(f"# [streaming] {n_docs} docs, {int(lens.sum())} tokens built in {build_s:.2f} s "
+        f"(bf16 cache included), peak device memory {peak / 1e9:.2f} GB; {ispec}")
+    probe_pids = rng.integers(0, n_docs, 64)
+    probes = torch.stack([chunk_gen(int(p), int(p) + 1)[:Q_LEN] for p in probe_pids]).cpu().numpy()
+    rand_q = rng.standard_normal((256, Q_LEN, DIM), dtype=np.float32)
+    rand_q /= np.linalg.norm(rand_q, axis=-1, keepdims=True)
+    queries = np.concatenate([rand_q, probes])
+    mem = MemoryIndex(idx, ispec, dev)
+    res = api_search(mem, queries, counters, 256, probe_pids, "streaming index",
+                     ("segmented_estimate", "maxsim_gather_scores"))
+    if res["launches"]["maxsim_gather_scores_dedup"]:
+        raise AssertionError("streaming index: the dedup kernel ran past its gate")
+    from fast_plaid_tpu_torch.search import engine
+
+    kw = engine_kwargs(mem.loaded, mem.mem_budget)
+    tile = torch.from_numpy(queries[:256].astype(np.float16)).to(dev)
+    res["diff"], _ = compare_tile("streaming index", lambda k: engine.search_impl(
+        idx, tile, None, use_estimate_kernel=k, use_rerank_kernel=k, **kw))
+    res["tile_ms"] = tile_latency(lambda: engine.search_impl(
+        idx, tile, None, use_estimate_kernel=True, use_rerank_kernel=True, **kw),
+        "streaming index", n=10)
+    del mem, idx
+    torch.cuda.empty_cache()
+    return {"build_s": build_s, "peak_gb": peak / 1e9, **res}
+
+
+def phase_resident(dev, index_dir, docs, queries, n_queries, probe_pids, counters, seed):
     """Phase 3 (dedup stage 6) and 3b (per-query stage 6)."""
     import torch
 
@@ -806,8 +1346,11 @@ def phase_resident(dev, index_dir, docs, queries, n_queries, probe_pids, counter
     agree = float(np.mean([len(set(a) & set(b)) / TOP_K
                            for a, b in zip(res["ids"], res_k2["ids"])]))
     log(f"# [resident] top-{TOP_K} overlap, dedup vs per-query stage 6: {agree:.4f}")
+    res["probe_ties"] = probe_ties(dev, loaded, queries, kw)
+    res_tok = phase_tokens(dev, fp, loaded, queries, n_queries, probe_pids, counters,
+                           res["tile_ms"], seed)
     fp.close()
-    return res, res_k2
+    return res, res_k2, res_tok
 
 
 def phase_low_memory(dev, index_dir, queries, n_queries, probe_pids, counters, resident_ids):
@@ -1479,8 +2022,9 @@ def main() -> None:
     index_dir = os.path.join(ROOT, "build", "chip_smoke_index")
     shutil.rmtree(index_dir, ignore_errors=True)
     try:
-        main_res, k2_res = phase_resident(dev, index_dir, docs, queries, args.n_queries,
-                                          probe_pids, counters)
+        main_res, k2_res, tok_res = phase_resident(dev, index_dir, docs, queries,
+                                                   args.n_queries, probe_pids, counters,
+                                                   args.seed)
         torch.cuda.empty_cache()
         lm_res = phase_low_memory(dev, index_dir, queries, args.n_queries, probe_pids,
                                   counters, main_res["ids"])
@@ -1492,9 +2036,16 @@ def main() -> None:
                                 counters, args.seed)
     finally:
         shutil.rmtree(index_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    dbuild_res = phase_device_build(dev, docs, queries, args.n_queries, probe_pids, counters,
+                                    main_res)
     del docs
     torch.cuda.empty_cache()
     long_res = phase_long_docs(dev, counters, args.seed)
+    torch.cuda.empty_cache()
+    skew_res = phase_skewed(dev, counters, args.seed)
+    torch.cuda.empty_cache()
+    stream_res = phase_streaming(dev, counters, args.seed)
 
     for label, r in (("resident (dedup stage 6)", main_res),
                      ("resident, dedup off (per-query stage 6)", k2_res),
@@ -1522,6 +2073,27 @@ def main() -> None:
         f"{mut_res['mask_tile_ms']:.3f} ms tile, on {smi}")
     for op in ("update50", "update2000", "delete"):
         log(f"# summary [{op} seconds by step]: {mut_res[op + '_parts']}")
+    for label, r in (("skewed, bucketed (dedup stage 6 a bucket)", skew_res["bucketed"]),
+                     ("skewed, bucketed, dedup off (kernel 2 a bucket)", skew_res["bucketed_k2"]),
+                     ("skewed, one cap (default budget)", skew_res["one_cap"]),
+                     ("skewed, q4 tier (budget of the q4 cache)", skew_res["q4_tier"]),
+                     ("streaming index, 522,931 docs (kernel 2 stage 6)", stream_res)):
+        log(f"# summary [{label}]: {r['qps']:.1f} API QPS, tile p50/p99 "
+            f"{r['tile_ms'][0]:.3f}/{r['tile_ms'][1]:.3f} ms, planted hit@1 {r['hit1']}, "
+            f"kernel = plain up to ties (max diff {r['diff']:.2e}), on {smi}")
+    log(f"# summary [skewed]: quota drops in one tile {skew_res['bucketed']['quota_drops']}, "
+        f"corpus + create {skew_res['create_s']:.2f} s, on {smi}")
+    log(f"# summary [tokens]: {tok_res['qps']:.1f} API QPS over 320 queries, tile p50/p99 "
+        f"{tok_res['tile_ms'][0]:.3f}/{tok_res['tile_ms'][1]:.3f} ms (cells "
+        f"{main_res['tile_ms'][0]:.3f} ms), planted hit@1 {tok_res['hit1']}; auto -> tokens "
+        f"on the coarse index, hit@1 {tok_res['auto_hit1']}, on {smi}")
+    log(f"# summary [builds]: device build {dbuild_res['build_s']:.2f} s against create "
+        f"{main_res['create_s']:.2f} s at {args.n_docs} docs (top-{TOP_K} overlap "
+        f"{dbuild_res['overlap']:.4f}, {dbuild_res['qps']:.1f} API QPS, hit@1 "
+        f"{dbuild_res['hit1']}; against the host build {dbuild_res['same']}); streaming build "
+        f"of 522,931 docs {stream_res['build_s']:.2f} s, "
+        f"peak {stream_res['peak_gb']:.2f} GB, on {smi}")
+    log(f"# summary [probe ties]: {main_res['probe_ties']}, on {smi}")
     log(f"# build {build_s:.2f} s, create {main_res['create_s']:.2f} s (metadata included), low_memory "
         f"open {lm_res['load_s']:.2f} s, q4 tier open {q4_res['load_s']:.2f} s, "
         f"host gather {lm_res['gather_ms']:.3f} ms/tile")

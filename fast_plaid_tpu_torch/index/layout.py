@@ -13,11 +13,16 @@ live doc-major and padded, so one row gather fetches a whole document:
                                       ``ops/q4cache.py``), with ``q4_scale``
                                       [Np] float32
 
+With length buckets (``to_device(length_buckets > 1)`` on a length-skewed
+corpus) the residuals and the bf16 cache live per bucket instead, each
+document padded to its bucket's cap (``DocBucket``); ``residuals`` and
+``emb_cache`` are then None and ``doc_bucket`` / ``doc_bucket_row`` map a
+pid to its bucket and row there. ``codes`` stays full-cap.
+
 IVF cells keep the flat + offsets form with every cell starting on a
 multiple of ``IVF_ALIGN``, so candidate windows are whole rows of
 ``ivf.view(-1, IVF_ALIGN)``. One sentinel document (pid == n_docs, length 0)
-absorbs invalid candidate slots. The length-bucketed layout is not ported
-yet (ROADMAP.md §1).
+absorbs invalid candidate slots.
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ from fast_plaid_tpu_torch.ops import codec
 
 __all__ = [
     "DeviceIndex",
+    "DocBucket",
     "IndexSpec",
     "to_device",
     "round_up",
@@ -44,6 +50,7 @@ __all__ = [
     "quantize_q4_rows",
     "device_index_from_arrays",
     "IVF_ALIGN",
+    "align_ivf_device",
 ]
 
 # Every cell's IVF list starts on a multiple of this, so candidate windows
@@ -53,6 +60,63 @@ IVF_ALIGN = 128
 
 def round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
+
+
+def align_ivf_device(
+    ivf_pids: torch.Tensor,
+    ivf_len_host: np.ndarray,
+    *,
+    k: int,
+    kp: int,
+    n_docs: int,
+    cell_cap: int,
+) -> tuple[torch.Tensor, np.ndarray, np.ndarray]:
+    """Re-lay a compact device IVF (the cells' pid lists back to back) into
+    the aligned layout ``to_device`` builds on the host.
+
+    Returns (aligned flat pids on ``ivf_pids``'s device, ivf_offsets,
+    ivf_lengths as host arrays [kp + 8]). One row gather of IVF_ALIGN pids
+    per aligned row; slots past a cell's length hold the sentinel pid.
+    """
+    lens = np.asarray(ivf_len_host[:k], np.int64)
+    nrows_c = -(-lens // IVF_ALIGN)
+    row_start = np.concatenate([[0], np.cumsum(nrows_c)])
+    n_rows = int(row_start[-1])
+    n_aligned = n_rows * IVF_ALIGN
+    src_off = np.concatenate([[0], np.cumsum(lens)])[:-1]
+    owner = np.repeat(np.arange(k, dtype=np.int64), nrows_c)
+    local = np.arange(n_rows, dtype=np.int64) - row_start[owner]
+    src_start = src_off[owner] + IVF_ALIGN * local
+    rem = lens[owner] - IVF_ALIGN * local
+
+    device = ivf_pids.device
+    size = n_aligned + round_up(cell_cap, IVF_ALIGN)  # the last window's tail
+    flat = torch.full((size,), n_docs, dtype=torch.int32, device=device)
+    if n_rows:
+        iota = torch.arange(IVF_ALIGN, dtype=torch.int64, device=device)
+        idx = torch.from_numpy(src_start).to(device)[:, None] + iota[None, :]
+        idx = torch.clamp(idx, 0, int(ivf_pids.shape[0]) - 1)
+        keep = iota[None, :] < torch.from_numpy(rem).to(device)[:, None]
+        flat[:n_aligned] = torch.where(keep, ivf_pids[idx].to(torch.int32), n_docs).reshape(-1)
+    ivf_off = np.zeros((kp + 8,), np.int32)
+    ivf_off[:k] = (row_start[:-1] * IVF_ALIGN).astype(np.int32)
+    ivf_off[k:] = n_aligned
+    ivf_len = np.zeros((kp + 8,), np.int32)
+    ivf_len[:k] = lens.astype(np.int32)
+    return flat, ivf_off, ivf_len
+
+
+@dataclass
+class DocBucket:
+    """Doc-major token rows of one length bucket, at the bucket's cap.
+
+    The last row of each tensor is all zeros and absorbs sentinel and
+    padding lookups.
+    """
+
+    codes: torch.Tensor  # [Nb + 1, cap_b] int32
+    residuals: torch.Tensor  # [Nb + 1, cap_b * PD] uint8 (row-flat)
+    emb: torch.Tensor | None = None  # [Nb + 1, cap_b, D] bf16 cache
 
 
 @dataclass
@@ -70,6 +134,12 @@ class DeviceIndex:
     emb_cache: torch.Tensor | None = None  # [Np, doc_cap, D] bf16
     emb_q4: torch.Tensor | None = None  # [Np * doc_cap/2, D] uint8 (2-D)
     q4_scale: torch.Tensor | None = None  # [Np] float32 per-document scale
+    # Length-bucketed layout (``IndexSpec.bucket_caps`` non-empty): the
+    # residuals and the bf16 cache live in ``buckets``, and ``residuals`` /
+    # ``emb_cache`` above are None.
+    doc_bucket: torch.Tensor | None = None  # [Np] int32 bucket of each pid
+    doc_bucket_row: torch.Tensor | None = None  # [Np] int32 row in that bucket
+    buckets: tuple[DocBucket, ...] = ()
 
 
 @dataclass(frozen=True)
@@ -83,7 +153,9 @@ class IndexSpec:
     doc_cap: int  # static per-document token window
     cell_cap: int  # static per-IVF-cell window
     has_ivf: bool
-    # Length buckets are not ported; both stay empty.
+    # Length-bucket plan (empty: the single doc_cap layout). Caps ascend and
+    # end at doc_cap; counts are real documents a bucket and set the static
+    # rerank quotas (engine._bucket_quota).
     bucket_caps: tuple[int, ...] = ()
     bucket_counts: tuple[int, ...] = ()
 
@@ -149,10 +221,11 @@ def to_device(
     """Pad host arrays (token-major flats) into the doc-major device layout.
 
     ``residuals_on_device=False`` is low_memory: the residuals stay in host
-    RAM and ``DeviceIndex.residuals`` is None. ``length_buckets > 1`` asks
-    for the length-bucketed layout (device-resident residuals only). Where
-    ``plan_buckets`` would choose buckets this raises NotImplementedError
-    rather than silently taking the single-cap layout.
+    RAM and ``DeviceIndex.residuals`` is None. ``length_buckets > 1`` allows
+    up to that many length buckets (device-resident residuals only), taken
+    where ``plan_buckets`` finds the corpus skewed enough to pay off: each
+    bucket holds its documents' residuals at its own cap, and
+    ``DeviceIndex.residuals`` is None.
     """
     k, dim = centroids.shape
     n_real_docs = int(len(doc_lengths))
@@ -176,18 +249,14 @@ def to_device(
     codes2d = np.zeros((np_docs, doc_cap), dtype=np.int32)
     lengths = np.zeros((np_docs,), dtype=np.int32)
     clipped = np.minimum(doc_lengths, doc_cap)
-    if length_buckets > 1 and residuals_on_device and n_real_docs:
-        caps = plan_buckets(clipped, doc_cap, max_buckets=length_buckets)
-        if caps:
-            msg = (
-                f"this corpus's length skew selects length buckets {caps}; "
-                "the length-bucketed layout is not ported yet (ROADMAP.md "
-                "§1, length buckets). Pass length_buckets=0."
-            )
-            raise NotImplementedError(msg)
+    caps = (
+        plan_buckets(clipped, doc_cap, max_buckets=length_buckets)
+        if length_buckets > 1 and residuals_on_device and n_real_docs
+        else None
+    )
     residuals2d = (
         np.zeros((np_docs, doc_cap, pd), dtype=np.uint8)
-        if residuals_on_device
+        if residuals_on_device and not caps
         else None
     )
     if n_real_docs:
@@ -197,12 +266,39 @@ def to_device(
         )
         keep = within < doc_cap
         dst = doc_ids[keep] * doc_cap + within[keep]
-        codes2d.reshape(-1)[dst] = np.asarray(codes, np.int32)[keep]
+        codes_np = np.asarray(codes, np.int32)
+        codes2d.reshape(-1)[dst] = codes_np[keep]
         if residuals2d is not None:
             residuals2d.reshape(-1, pd)[dst] = np.asarray(residuals)[keep]
     lengths[:n_real_docs] = clipped.astype(np.int32)
     if residuals2d is not None:
         residuals2d = residuals2d.reshape(np_docs, doc_cap * pd)
+
+    host_buckets: list[tuple[np.ndarray, np.ndarray]] = []
+    bucket_counts: list[int] = []
+    doc_bucket = doc_bucket_row = None
+    if caps:
+        res_np = np.asarray(residuals)
+        which = np.searchsorted(caps, clipped, side="left")  # [n_real]
+        row_in_bucket = np.zeros((n_real_docs,), np.int64)
+        for i in range(len(caps)):
+            in_i = which == i
+            bucket_counts.append(int(in_i.sum()))
+            row_in_bucket[in_i] = np.arange(bucket_counts[-1])
+        for i, cap_b in enumerate(caps):
+            nb = bucket_counts[i]
+            codes_b = np.zeros((nb + 1, cap_b), dtype=np.int32)
+            res_b = np.zeros((nb + 1, cap_b, pd), dtype=np.uint8)
+            in_b = (which[doc_ids] == i) & (within < cap_b)
+            dst_b = row_in_bucket[doc_ids[in_b]] * cap_b + within[in_b]
+            codes_b.reshape(-1)[dst_b] = codes_np[in_b]
+            res_b.reshape(-1, pd)[dst_b] = res_np[in_b]
+            host_buckets.append((codes_b, res_b.reshape(nb + 1, cap_b * pd)))
+        # Padding documents and the sentinel map to bucket 0's zero row.
+        doc_bucket = np.zeros((np_docs,), np.int32)
+        doc_bucket[:n_real_docs] = which
+        doc_bucket_row = np.full((np_docs,), bucket_counts[0], np.int32)
+        doc_bucket_row[:n_real_docs] = row_in_bucket
 
     cent_p = np.zeros((kp, dim), dtype=np.float32)
     cent_p[:k] = centroids.astype(np.float32, copy=False)
@@ -255,6 +351,11 @@ def to_device(
         ivf=put(ivf_p),
         ivf_offsets=put(ivf_off),
         ivf_lengths=put(ivf_len),
+        doc_bucket=put(doc_bucket) if doc_bucket is not None else None,
+        doc_bucket_row=put(doc_bucket_row) if doc_bucket_row is not None else None,
+        buckets=tuple(
+            DocBucket(codes=put(cb), residuals=put(rb)) for cb, rb in host_buckets
+        ),
     )
     spec = IndexSpec(
         dim=dim,
@@ -264,11 +365,10 @@ def to_device(
         doc_cap=doc_cap,
         cell_cap=cell_cap,
         has_ivf=has_ivf,
+        bucket_caps=tuple(caps) if caps else (),
+        bucket_counts=tuple(bucket_counts),
     )
     return dev, spec
-
-
-_UNPORTED_FIELDS = ("doc_bucket", "doc_bucket_row", "buckets")
 
 
 def device_index_from_arrays(
@@ -281,15 +381,11 @@ def device_index_from_arrays(
     ``arrays`` maps DeviceIndex field names to numpy arrays (for example
     ``{f: np.asarray(getattr(dev, f))}`` over another implementation's
     index); bf16 arrays (``ml_dtypes.bfloat16``) are accepted, and an
-    absent ``residuals`` (low_memory) becomes None. Fields of layouts this
-    package does not implement must be absent or empty.
+    absent ``residuals`` (low_memory, or a bucketed index) becomes None. A
+    bucketed index also passes ``buckets``: one mapping a bucket with its
+    ``codes``, ``residuals`` and optionally ``emb`` arrays.
     """
     device = torch.device(device)
-    for name in _UNPORTED_FIELDS:
-        arr = arrays.get(name)
-        if arr is not None and np.asarray(arr).size:
-            msg = f"DeviceIndex field {name!r} belongs to a layout not ported yet"
-            raise NotImplementedError(msg)
 
     def put(x: np.ndarray) -> torch.Tensor:
         x = np.asarray(x)
@@ -297,12 +393,20 @@ def device_index_from_arrays(
             return torch.from_numpy(x.astype(np.float32)).to(torch.bfloat16).to(device)
         return torch.from_numpy(np.array(x)).to(device)  # a writable copy
 
-    known = {f.name for f in dataclasses.fields(DeviceIndex)}
+    known = {f.name for f in dataclasses.fields(DeviceIndex)} - {"buckets"}
     kwargs = {
         name: put(arr)
         for name, arr in arrays.items()
         if name in known and arr is not None and np.asarray(arr).size
     }
+    kwargs["buckets"] = tuple(
+        DocBucket(
+            codes=put(bk["codes"]),
+            residuals=put(bk["residuals"]).reshape(np.shape(bk["codes"])[0], -1),
+            emb=put(bk["emb"]) if bk.get("emb") is not None else None,
+        )
+        for bk in arrays.get("buckets") or ()
+    )
     if "residuals" in kwargs:
         kwargs["residuals"] = kwargs["residuals"].reshape(
             kwargs["codes"].shape[0], -1
@@ -316,9 +420,6 @@ def device_index_from_arrays(
             if k in spec_keys
         }
     )
-    if spec.bucket_caps:
-        msg = "length-bucketed indexes are not ported yet (ROADMAP.md §1)"
-        raise NotImplementedError(msg)
     return DeviceIndex(**kwargs), spec
 
 
@@ -329,6 +430,11 @@ def gather_res(res_flat: torch.Tensor, idx: torch.Tensor, cap: int) -> torch.Ten
 
 def emb_cache_bytes(ispec: IndexSpec) -> int:
     """Device-memory cost of the decompressed-corpus cache for this index."""
+    if ispec.bucket_caps:
+        return sum(
+            (n + 1) * cap * ispec.dim * 2
+            for n, cap in zip(ispec.bucket_counts, ispec.bucket_caps)
+        )
     np_docs = round_up(ispec.n_docs + 1, 8)
     return np_docs * ispec.doc_cap * ispec.dim * 2
 
@@ -339,8 +445,27 @@ def build_emb_cache(
     """Decompress the whole corpus once into a bf16 device cache.
 
     Afterwards stage 6 is a pure gather + MaxSim over cached rows. Needs
-    device-resident residuals.
+    device-resident residuals, full-cap or in length buckets (each bucket
+    gets its own cache at its cap).
     """
+    if dev.buckets:
+        if dev.buckets[0].emb is not None:
+            return dev
+        buckets = tuple(
+            dataclasses.replace(
+                bk,
+                emb=_decompress_2d(
+                    bk.codes,
+                    bk.residuals,
+                    dev.centroids,
+                    dev.bucket_weights,
+                    nbits=ispec.nbits,
+                    block=min(block, bk.codes.shape[0]),
+                ),
+            )
+            for bk in dev.buckets
+        )
+        return dataclasses.replace(dev, buckets=buckets)
     if dev.residuals is None or dev.emb_cache is not None:
         return dev
     cache = _decompress_2d(
@@ -405,22 +530,38 @@ def build_q4_cache(
 
     Decompresses and quantizes ``block`` documents at a time into one
     preallocated tensor, so the decompressed corpus never exists whole.
-    Needs device-resident residuals.
+    Needs device-resident residuals in the single-cap layout.
     """
-    if dev.residuals is None or dev.emb_q4 is not None:
+    if dev.residuals is None or dev.buckets or dev.emb_q4 is not None:
         return dev
     n, cap = dev.codes.shape
-    caph = cap // 2
-    res = dev.residuals.reshape(n, cap, -1)
-    out = torch.empty((n * caph, ispec.dim), dtype=torch.uint8, device=dev.codes.device)
+    out = torch.empty((n * (cap // 2), ispec.dim), dtype=torch.uint8, device=dev.codes.device)
     scale = torch.empty((n,), dtype=torch.float32, device=dev.codes.device)
+    quantize_q4_into(
+        dev.codes, dev.residuals, dev.centroids, dev.bucket_weights,
+        nbits=ispec.nbits, out=out, scale=scale, block=block,
+    )
+    return dataclasses.replace(dev, emb_q4=out, q4_scale=scale)
+
+
+def quantize_q4_into(
+    codes: torch.Tensor,  # [N, cap] int32 doc-major
+    residuals: torch.Tensor,  # [N, cap * PD] uint8 row-flat
+    centroids: torch.Tensor,
+    bucket_weights: torch.Tensor,
+    *,
+    nbits: int,
+    out: torch.Tensor,  # [N * cap/2, D] uint8, written in place
+    scale: torch.Tensor,  # [N] float32, written in place
+    block: int = 2048,
+) -> None:
+    """Fill a preallocated q4 cache from doc-major rows, ``block`` documents
+    at a time, so the decompressed corpus never exists whole."""
+    n, cap = codes.shape
+    caph = cap // 2
+    res = residuals.reshape(n, cap, -1)
     for start in range(0, n, max(block, 1)):
         end = min(start + block, n)
         out[start * caph : end * caph], scale[start:end] = quantize_q4_rows(
-            dev.codes[start:end],
-            res[start:end],
-            dev.centroids,
-            dev.bucket_weights,
-            nbits=ispec.nbits,
+            codes[start:end], res[start:end], centroids, bucket_weights, nbits=nbits
         )
-    return dataclasses.replace(dev, emb_q4=out, q4_scale=scale)

@@ -67,7 +67,7 @@ def _lloyd(
 
 
 def train_kmeans(
-    data: np.ndarray,
+    data: np.ndarray | torch.Tensor,
     k: int,
     niters: int = 4,
     seed: int = 42,
@@ -75,15 +75,23 @@ def train_kmeans(
     chunk: int = 16384,
     normalize: bool = True,
     device: torch.device | str = "cpu",
-) -> np.ndarray:
+) -> np.ndarray | torch.Tensor:
     """Train k-means centroids on [T, D] float data; returns [k, D] float32.
 
     Subsamples to k * max_points_per_centroid points, seeds the init from a
     random permutation of the data, runs Lloyd's on ``device`` and
-    (optionally) L2-normalizes the result.
+    (optionally) L2-normalizes the result. A tensor ``data`` stays where it
+    is: the subsample is gathered and Lloyd's runs on its device (``device``
+    is ignored), and the centroids come back as a tensor there. numpy data
+    gives numpy centroids. The numpy draws are the same either way.
     """
-    device = torch.device(device)
-    data = np.asarray(data, dtype=np.float32)
+    on_device = isinstance(data, torch.Tensor)
+    if on_device:
+        device = data.device
+        data = data.to(torch.float32)
+    else:
+        device = torch.device(device)
+        data = np.asarray(data, dtype=np.float32)
     t = data.shape[0]
     k = int(min(k, t))
     rng = np.random.default_rng(seed)
@@ -95,7 +103,7 @@ def train_kmeans(
     cap = k * max_points_per_centroid
     if t > cap:
         sel = np.sort(rng.choice(t, size=cap, replace=False))
-        data = data[sel]
+        data = data[torch.from_numpy(sel).to(device)] if on_device else data[sel]
         t = cap
 
     # Trim to a whole number of chunks, as the JAX package does (it keeps
@@ -105,7 +113,11 @@ def train_kmeans(
         data = data[:t]
 
     init_idx = np.sort(rng.permutation(t)[:k])
-    data_t = torch.from_numpy(np.ascontiguousarray(data)).to(device)
+    data_t = (
+        data.contiguous()
+        if on_device
+        else torch.from_numpy(np.ascontiguousarray(data)).to(device)
+    )
     init = data_t[torch.from_numpy(init_idx).to(device)]
     generator = torch.Generator().manual_seed(seed)
     chunk = int(min(chunk, max(256, t)))
@@ -113,4 +125,6 @@ def train_kmeans(
     if normalize:
         norms = torch.linalg.vector_norm(centroids, dim=-1, keepdim=True)
         centroids = centroids / torch.clamp(norms, min=1e-12)
+    if on_device:
+        return centroids
     return centroids.cpu().numpy().astype(np.float32, copy=False)

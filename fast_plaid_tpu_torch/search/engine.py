@@ -7,13 +7,17 @@ Port of ``fast_plaid_tpu/search/engine.py``: the same static-shape cascade
   1. query-centroid scores
   2. IVF probe (exact top-k per query token)
   3. candidates from whole cells, as 128-aligned IVF row windows
-  4. per-slot approximate estimates (``ops/estimate_kernel.py``)
+  4. per-slot approximate estimates (``ops/estimate_kernel.py``), or with
+     ``approx_mode="tokens"`` the reference's token-level estimates
   5. prune to the exact-rerank pool R = n_full_scores / pool_divisor
   6. exact MaxSim over the pool: over the bf16 corpus cache through the
      dedup kernel (``ops/rerank_dedup.py``) where ``dedup_viable`` holds,
      else the per-query kernel (``ops/rerank_kernel.py``); or decompress +
      MaxSim, after the q4 prefilter (``maxsim_q4_gather_scores``) has
-     narrowed the pool where only the 4-bit cache is resident
+     narrowed the pool where only the 4-bit cache is resident. A
+     length-bucketed index reranks each bucket's share of the pool at the
+     bucket's cap (``_rerank_bucketed``), through the same two kernels over
+     the bucket's cache.
   7. final top-k
 
 ``rerank_rows`` and ``q4_prefilter_core`` are low_memory's device steps
@@ -29,9 +33,10 @@ pool directly, skipping stages 1-5. ``reconstruct_core`` and
 
 Ported here: the ``cells`` / ``cells_full`` estimators (the exhaustive and
 the budgeted chunked-window branches, with rank admission, with or without
-a subset), the emb_cache, q4 and decompress rerank branches, token-score
-matrices, reconstruction and the numpy policy functions. The ``tokens``
-estimator and length buckets raise NotImplementedError (ROADMAP.md §1).
+a subset), the ``tokens`` estimator (plain PyTorch: the JAX package has no
+kernel for it), the emb_cache, q4, decompress and length-bucketed rerank
+branches, token-score matrices, reconstruction and the numpy policy
+functions.
 
 Tie order follows the JAX package on its CPU backend: cell orderings and the
 stage-5 and stage-7 top-k use stable sorts, so equal scores keep the lower
@@ -57,6 +62,7 @@ from fast_plaid_tpu_torch.ops.estimate_kernel import (
     segmented_estimate,
     segmented_estimate_plain,
 )
+from fast_plaid_tpu_torch.ops.maxsim import NEG_INF as MAXSIM_NEG
 from fast_plaid_tpu_torch.ops.maxsim import maxsim_reduce
 from fast_plaid_tpu_torch.ops.q4cache import score_q4
 from fast_plaid_tpu_torch.ops.rerank_dedup import (
@@ -233,6 +239,31 @@ def _slot_estimates(
     )
 
 
+def _probe_scores(dev: DeviceIndex, queries: torch.Tensor, k_real: int):
+    """Stages 1-2's scores: ([B, Q, Kp] query-centroid scores, the same with
+    padding cells and zero-padded query tokens at -inf). From 32k cells on
+    the table is bf16 and its inputs are bf16 (float32 accumulation)."""
+    b, q, d = queries.shape
+    kp = dev.centroids.shape[0]
+    flat_q = queries.reshape(b * q, d)
+    if kp >= 32768:
+        scores_qc = codec.bf16_matmul(flat_q, dev.centroids.t()).to(torch.bfloat16)
+    else:
+        scores_qc = torch.matmul(flat_q, dev.centroids.t())
+    scores_qc = scores_qc.reshape(b, q, kp)
+    tok_ok = torch.sum(torch.abs(queries), dim=-1) > 0  # [B, Q]
+    cell_valid = torch.arange(kp, device=queries.device) < k_real
+    probe_scores = torch.where(cell_valid[None, None, :] & tok_ok[..., None], scores_qc, NEG)
+    return scores_qc, probe_scores
+
+
+def _probe_topk(scores: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The IVF probe: the k best cells of each row, by ``torch.topk``. Its
+    order among exactly tied scores is unspecified on a GPU; the probed
+    set differs from a stable sort's only at a tie with the k-th score."""
+    return torch.topk(scores, k, dim=-1)
+
+
 def candidates_impl(
     dev: DeviceIndex,
     queries: torch.Tensor,  # [B, Q, D] (zero-padded query tokens)
@@ -260,35 +291,18 @@ def candidates_impl(
     budget by the corpus-to-subset density. ``mem_budget`` sizes the chunks
     of the subset's cell mask.
     """
-    if approx_mode not in ("cells", "cells_full"):
-        msg = (
-            f"approx_mode={approx_mode!r} is not ported yet; the port runs "
-            "'cells' and 'cells_full' (ROADMAP.md §1, estimators)"
-        )
-        raise NotImplementedError(msg)
+    if approx_mode not in ("cells", "cells_full", "tokens"):
+        msg = f"approx_mode must be 'cells', 'cells_full' or 'tokens'; got {approx_mode!r}"
+        raise ValueError(msg)
     queries = queries.to(torch.float32)
     device = queries.device
-    b, q, d = queries.shape
+    b, q, _ = queries.shape
     kp = dev.centroids.shape[0]
     k_real = ispec.n_partitions
     cell_cap = ispec.cell_cap
     sent_pid = ispec.sentinel_pid
 
-    # ---- 1. query-centroid scores. From 32k cells on, the [B, Q, Kp]
-    # table is bf16 and its inputs are bf16 (float32 accumulation).
-    flat_q = queries.reshape(b * q, d)
-    if kp >= 32768:
-        scores_qc = codec.bf16_matmul(flat_q, dev.centroids.t()).to(torch.bfloat16)
-    else:
-        scores_qc = torch.matmul(flat_q, dev.centroids.t())
-    scores_qc = scores_qc.reshape(b, q, kp)
-
-    # ---- 2. IVF probe. Zero-padded query tokens must not probe.
-    tok_ok = torch.sum(torch.abs(queries), dim=-1) > 0  # [B, Q]
-    cell_valid = torch.arange(kp, device=device) < k_real
-    probe_scores = torch.where(
-        cell_valid[None, None, :] & tok_ok[..., None], scores_qc, NEG
-    )
+    scores_qc, probe_scores = _probe_scores(dev, queries, k_real)
     if subset is not None:
         # Chunk of subset documents per scatter: the int64 index tensor
         # (8 B a token), the gathered int32 codes and the mask (~24 B a
@@ -297,7 +311,7 @@ def candidates_impl(
         allowed = _allowed_cells_mask(dev, subset, ispec, kp, chunk)
         probe_scores = torch.where(allowed[:, None, :], probe_scores, NEG)
     probe = min(n_ivf_probe, kp)
-    top_cell_scores, cells = torch.topk(probe_scores.reshape(b * q, kp), probe, dim=-1)
+    top_cell_scores, cells = _probe_topk(probe_scores.reshape(b * q, kp), probe)
     top_cell_scores = top_cell_scores.reshape(b, q, probe)
     cells = cells.to(torch.int32).reshape(b, q, probe)
     cells = torch.where(top_cell_scores > NEG, cells, kp)  # kp = empty cell
@@ -334,6 +348,12 @@ def candidates_impl(
     total = torch.sum(lens, dim=-1, dtype=torch.int32)
     if cand_cap is None:
         cand_cap = c_cells * cell_cap
+    if approx_mode == "tokens":
+        return _token_candidates(
+            dev, scores_qc, subset, offs, lens, total,
+            ispec=ispec, n_full_scores=n_full_scores, cand_cap=cand_cap,
+            mem_budget=mem_budget, with_stats=with_stats,
+        )
 
     # [B, C] cell totals (zero-padded query rows contribute exactly 0).
     cell_tot = torch.where(cells == kp, NEG, torch.sum(tbl, dim=-1))
@@ -488,6 +508,249 @@ def candidates_impl(
         pruned = torch.clamp(total - kept, min=0).to(torch.int32) - over
         return p2, torch.stack([torch.clamp(pruned, min=0), over], dim=-1)
     return p2
+
+
+def _token_candidates(
+    dev: DeviceIndex,
+    scores_qc: torch.Tensor,  # [B, Q, Kp] query-centroid scores
+    subset: torch.Tensor | None,
+    offs: torch.Tensor,  # [B, C] probed cells' IVF offsets (probe-score order)
+    lens: torch.Tensor,  # [B, C] their lengths (0 for empty cells)
+    total: torch.Tensor,  # [B] sum of lens
+    *,
+    ispec: IndexSpec,
+    n_full_scores: int,
+    cand_cap: int,
+    mem_budget: int,
+    with_stats: bool,
+):
+    """Stages 3-5 of the ``tokens`` estimator (the reference's): the probed
+    cells' lists laid end to end in a [B, cand_cap] buffer (cells past it
+    are dropped, counted as overflow), deduplicated, each unique candidate
+    estimated from its own tokens' centroid scores, and pruned to the pool
+    R = n_full_scores / 4."""
+    b = scores_qc.shape[0]
+    sent_pid = ispec.sentinel_pid
+    device = scores_qc.device
+    seg_end = torch.cumsum(lens, dim=-1)
+    jj = torch.arange(cand_cap, dtype=seg_end.dtype, device=device).expand(b, cand_cap)
+    # Slot j belongs to the first cell whose list ends past it.
+    owner = torch.clamp(
+        torch.searchsorted(seg_end.contiguous(), jj.contiguous(), right=True),
+        max=lens.shape[1] - 1,
+    )
+    base = _take(offs - (seg_end - lens), owner)
+    src = torch.clamp(base + jj, 0, dev.ivf.shape[0] - 1)
+    pid = torch.where(jj < total[:, None], dev.ivf[src.long()], sent_pid)
+    if subset is not None:
+        pid = _subset_filter(pid, subset, sent_pid)
+    pid_s = torch.sort(pid, dim=-1).values
+    # Unique candidates compacted to the front, sentinels behind.
+    cand = torch.sort(torch.where(_run_heads(pid_s, sent_pid), pid_s, sent_pid), dim=-1).values
+    approx = _token_estimates(dev, cand, scores_qc, ispec=ispec, mem_budget=mem_budget)
+
+    # ---- 5. prune: top n_full_scores, then the pool (n_full_scores // 4).
+    k1 = min(n_full_scores, cand_cap)
+    s1, i1 = _top_k(approx, k1)
+    p1 = torch.where(torch.isneginf(s1), sent_pid, torch.gather(cand, 1, i1))
+    p2 = p1[:, : min(max(n_full_scores // 4, 1), k1)].contiguous()
+    if with_stats:
+        over = torch.clamp(total - cand_cap, min=0).to(torch.int32)
+        return p2, torch.stack([torch.zeros_like(over), over], dim=-1)
+    return p2
+
+
+def _token_estimates(
+    dev: DeviceIndex,
+    cand: torch.Tensor,  # [B, A] unique pids, sentinels at the back of each row
+    scores_qc: torch.Tensor,  # [B, Q, Kp]
+    *,
+    ispec: IndexSpec,
+    mem_budget: int,
+) -> torch.Tensor:
+    """[B, A] token-level estimates: for each query token, the max over the
+    candidate's valid tokens of their centroid's score, summed over Q; -inf
+    at sentinels, Q * MAXSIM_NEG for an empty document.
+
+    Chunked over candidates (the gathered [B, A_c, 64, Q] block stays within
+    ``mem_budget``) and over 64-token blocks of the document; chunks past the
+    last row's last live candidate are not computed.
+    """
+    b, width = cand.shape
+    q, kp = scores_qc.shape[1], scores_qc.shape[2]
+    doc_cap = ispec.doc_cap
+    sent_pid = ispec.sentinel_pid
+    flat_tab = scores_qc.transpose(1, 2).to(torch.bfloat16).reshape(b * kp, q)
+    tab_off = (torch.arange(b, device=cand.device) * kp)[:, None, None]
+    t_blk = min(doc_cap, 64)
+    # A gathered bf16 element and its float32 masked copy: 6 bytes.
+    a_chunk = max(8, min(width, mem_budget // max(1, 6 * b * t_blk * q)))
+    n_live = int(torch.sum(cand != sent_pid, dim=-1).max())
+    approx = torch.full((b, width), NEG, dtype=torch.float32, device=cand.device)
+    for start in range(0, n_live, a_chunk):
+        p = cand[:, start : start + a_chunk]
+        valid = _doc_mask(dev, p, doc_cap)
+        tok_codes = dev.codes[p.long()]  # [B, A_c, doc_cap]
+        mx = torch.full((*p.shape, q), MAXSIM_NEG, dtype=torch.float32, device=p.device)
+        for t0 in range(0, doc_cap, t_blk):
+            g = flat_tab[tok_codes[:, :, t0 : t0 + t_blk] + tab_off]  # [B, A_c, t, Q]
+            g = torch.where(valid[:, :, t0 : t0 + t_blk, None], g.to(torch.float32), MAXSIM_NEG)
+            mx = torch.maximum(mx, torch.amax(g, dim=2))
+        approx[:, start : start + a_chunk] = torch.where(p == sent_pid, NEG, torch.sum(mx, dim=-1))
+    return approx
+
+
+def _cache_scores(emb: torch.Tensor, pids, lens, queries) -> torch.Tensor:
+    """Stage 6 over a bf16 cache through the kernel wrappers: the dedup
+    kernel where ``dedup_viable`` holds for this pool, else the per-query
+    kernel. [B, R] float32, -inf for empty rows."""
+    b, r = pids.shape
+    if dedup_viable(emb.shape[0], b, r, queries.shape[1], queries.shape[2]):
+        return maxsim_gather_scores_dedup(emb, pids, lens, queries)
+    return maxsim_gather_scores(emb, pids, lens, queries)
+
+
+def _bucket_quota(r: int, ispec: IndexSpec, bi: int) -> int:
+    """Static rerank-slot quota of length bucket ``bi``: twice its share of
+    the documents plus a floor of 64, rounded up to 8, at most R.
+
+    A candidate past its bucket's quota is dropped from the exact rerank and
+    counted as overflow in the search stats.
+    """
+    counts = ispec.bucket_counts
+    share = counts[bi] / max(sum(counts), 1)
+    q = int(r * share * 2.0) + 64
+    return min(r, ((q + 7) // 8) * 8)
+
+
+def _score_bucket_rows(
+    dev: DeviceIndex,
+    bucket,
+    rows: torch.Tensor,  # [B, N] local row ids (the zero row for invalid)
+    lens: torch.Tensor,  # [B, N] valid token counts (<= cap_b)
+    queries: torch.Tensor,
+    *,
+    nbits: int,
+    cap_b: int,
+    mem_budget: int,
+) -> torch.Tensor:
+    """Plain stage 6 over one bucket's rows -> [B, N]: from the bucket's
+    cache, or decompressed from its codec rows, chunked over N."""
+    b, n = rows.shape
+    q, d = queries.shape[1], queries.shape[2]
+    per_row = b * cap_b * max(d * 4, q * 4)
+    n_chunk = max(4, min(n, mem_budget // max(1, per_row)))
+    iota = torch.arange(cap_b, device=rows.device)
+    parts = []
+    for s in range(0, n, n_chunk):
+        rr = rows[:, s : s + n_chunk].long()
+        if bucket.emb is not None:
+            emb = bucket.emb[rr]
+        else:
+            emb = codec.decompress(
+                bucket.codes[rr],
+                gather_res(bucket.residuals, rr, cap_b),
+                dev.centroids,
+                dev.bucket_weights,
+                nbits,
+                out_dtype=torch.bfloat16,
+            )
+        sc, _ = _exact_scores(emb, queries, iota < lens[:, s : s + n_chunk, None])
+        parts.append(sc)
+    return torch.cat(parts, dim=1)
+
+
+def _rerank_bucketed(
+    dev: DeviceIndex,
+    queries: torch.Tensor,
+    p2: torch.Tensor,  # [B, R] pids sorted by descending estimate
+    *,
+    ispec: IndexSpec,
+    mem_budget: int,
+    use_kernel: bool,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Stage 6 over the length-bucketed layout.
+
+    Each bucket reranks its own candidates at its cap: they are compacted to
+    the front in estimate order (a stable sort) and cut to the bucket's
+    quota. With ``use_kernel`` and the bucket's cache resident the rows go
+    through ``_cache_scores`` (the kernels on a GPU), else the plain
+    ``_score_bucket_rows``. Scores go back to their p2 positions by a max
+    scatter; dropped slots stay -inf. Returns (exact [B, R] float32,
+    quota-dropped [B] int32).
+    """
+    b, r = p2.shape
+    sent = ispec.sentinel_pid
+    pos = torch.arange(r, device=p2.device)[None, :]
+    safe_pid = torch.clamp(p2, 0, dev.doc_bucket.shape[0] - 1).long()
+    b_of = dev.doc_bucket[safe_pid]
+    valid = p2 != sent
+    exact = torch.full((b, r), NEG, dtype=torch.float32, device=p2.device)
+    dropped = torch.zeros((b,), dtype=torch.int32, device=p2.device)
+    for bi, bucket in enumerate(dev.buckets):
+        cap_b = ispec.bucket_caps[bi]
+        quota = _bucket_quota(r, ispec, bi)
+        in_b = (b_of == bi) & valid
+        keyed = torch.where(in_b, pos, r + pos)
+        perm = torch.argsort(keyed, dim=-1, stable=True)[:, :quota]
+        sel_ok = torch.gather(in_b, 1, perm)
+        pids_b = torch.gather(safe_pid, 1, perm)
+        zero_row = bucket.codes.shape[0] - 1
+        rows = torch.where(sel_ok, dev.doc_bucket_row[pids_b], zero_row).to(torch.int32)
+        lens = torch.where(sel_ok, dev.doc_lengths[pids_b], 0).to(torch.int32)
+        if use_kernel and bucket.emb is not None:
+            sc = _cache_scores(bucket.emb, rows, lens, queries)
+        else:
+            sc = _score_bucket_rows(
+                dev, bucket, rows, lens, queries,
+                nbits=ispec.nbits, cap_b=cap_b, mem_budget=mem_budget,
+            )
+        # A position belongs to one bucket; the others touch it only with
+        # -inf fillers, so the max scatter composes.
+        exact.scatter_reduce_(1, perm, torch.where(sel_ok, sc, NEG), "amax")
+        dropped += torch.clamp(torch.sum(in_b, dim=-1, dtype=torch.int32) - quota, min=0)
+    return exact, dropped
+
+
+def _decompress_rows_bucketed(
+    dev: DeviceIndex,
+    pids: torch.Tensor,  # [...] sentinel-safe pids
+    *,
+    ispec: IndexSpec,
+    out_dtype=None,
+    use_cache: bool = True,
+) -> torch.Tensor:
+    """Token rows of ``pids`` from the bucketed layout: [..., doc_cap, D],
+    zero past each bucket's cap. From the bucket caches with ``use_cache``
+    where they are resident, else decompressed from the codec; one masked
+    pass per bucket (meant for small pid sets)."""
+    doc_cap = ispec.doc_cap
+    safe_pid = torch.clamp(pids, 0, dev.doc_bucket.shape[0] - 1).long()
+    b_of = dev.doc_bucket[safe_pid]
+    out = None
+    for bi, bucket in enumerate(dev.buckets):
+        cap_b = ispec.bucket_caps[bi]
+        in_b = b_of == bi
+        rows = torch.where(
+            in_b, dev.doc_bucket_row[safe_pid], bucket.codes.shape[0] - 1
+        ).long()
+        if use_cache and bucket.emb is not None:
+            emb = bucket.emb[rows]
+            if out_dtype is not None:
+                emb = emb.to(out_dtype)
+        else:
+            emb = codec.decompress(
+                bucket.codes[rows],
+                gather_res(bucket.residuals, rows, cap_b),
+                dev.centroids,
+                dev.bucket_weights,
+                ispec.nbits,
+                out_dtype=out_dtype,
+            )
+        emb = torch.where(in_b[..., None, None], emb, 0)
+        emb = _pad_to(emb, doc_cap, emb.ndim - 2, 0)
+        out = emb if out is None else out + emb
+    return out
 
 
 def rerank_rows(
@@ -674,7 +937,7 @@ def search_impl(
     if (
         dev.emb_q4 is not None
         and dev.emb_cache is None
-        and not ispec.bucket_caps
+        and not dev.buckets
         and not exhaustive
         and q4_pool < r
     ):
@@ -685,16 +948,20 @@ def search_impl(
         p2 = torch.where(torch.isneginf(s_m), sent_pid, torch.gather(p2, 1, i_m))
         r = q4_pool
 
-    if use_rerank_kernel and dev.emb_cache is not None:
+    if dev.buckets:
+        # Length-bucketed stage 6: one pass a bucket at its cap.
+        exact, qdrop = _rerank_bucketed(
+            dev, queries, p2, ispec=ispec, mem_budget=mem_budget,
+            use_kernel=use_rerank_kernel,
+        )
+        if with_stats:
+            stats[:, 1] += qdrop  # quota drops are static-buffer overflow
+    elif use_rerank_kernel and dev.emb_cache is not None:
         # Fused gather + MaxSim: candidate rows stream into shared memory
         # once and only [B, R] scores come back. Where the tile's pools
         # overlap enough (small corpus against B * R), the dedup kernel
         # reads each (document, requester group) row once instead.
-        lens = dev.doc_lengths[p2.long()]
-        if dedup_viable(dev.emb_cache.shape[0], b, r, q, d):
-            exact = maxsim_gather_scores_dedup(dev.emb_cache, p2, lens, queries)
-        else:
-            exact = maxsim_gather_scores(dev.emb_cache, p2, lens, queries)
+        exact = _cache_scores(dev.emb_cache, p2, dev.doc_lengths[p2.long()], queries)
     else:
         # Chunk over the rerank set with the gathers inside each chunk, so
         # the [B, R, doc_cap, ...] token tensors never materialize in full.
@@ -727,7 +994,11 @@ def search_impl(
     # Token-score matrices of the winners only, recomputed.
     safe = torch.where(fp < 0, sent_pid, fp).long()
     valid = _doc_mask(dev, safe, doc_cap)
-    if dev.emb_cache is not None:
+    if dev.buckets:
+        emb = _decompress_rows_bucketed(dev, safe, ispec=ispec, out_dtype=torch.bfloat16)
+        _, tok = _exact_scores(emb, queries, valid)
+        tok = torch.where(valid[..., None], tok, 0.0)
+    elif dev.emb_cache is not None:
         _, tok = _exact_scores(dev.emb_cache[safe], queries, valid)
         tok = torch.where(valid[..., None], tok, 0.0)
     else:
@@ -768,17 +1039,20 @@ def reconstruct_core(
 
     Always from the codec in float32, never from the bf16 cache:
     get_embeddings promises full-precision decompression. Needs
-    device-resident residuals.
+    device-resident residuals (full-cap or in length buckets).
     """
     pids = pids.long()
     valid = _doc_mask(dev, pids, ispec.doc_cap)
-    emb = codec.decompress(
-        dev.codes[pids],
-        gather_res(dev.residuals, pids, ispec.doc_cap),
-        dev.centroids,
-        dev.bucket_weights,
-        ispec.nbits,
-    )
+    if dev.buckets:
+        emb = _decompress_rows_bucketed(dev, pids, ispec=ispec, use_cache=False)
+    else:
+        emb = codec.decompress(
+            dev.codes[pids],
+            gather_res(dev.residuals, pids, ispec.doc_cap),
+            dev.centroids,
+            dev.bucket_weights,
+            ispec.nbits,
+        )
     emb = torch.where(valid[..., None], emb, 0.0)
     return emb, dev.doc_lengths[pids]
 

@@ -10,6 +10,9 @@ of the index files, and the searcher gathers only the rerank rows of each
 query tile there, codes included, and sends them to the device.
 The q4 cache is then built on the device from host rows, streamed once. On
 the CPU low_memory is ignored, as in the JAX package.
+
+A resident load of a length-skewed corpus chooses between the single-cap
+layout and length buckets by the cache budget (``choose_length_buckets``).
 """
 
 from __future__ import annotations
@@ -26,13 +29,22 @@ from fast_plaid_tpu_torch.index.layout import (
     build_emb_cache,
     build_q4_cache,
     emb_cache_bytes,
+    plan_buckets,
     q4_cache_bytes,
     quantize_q4_rows,
+    round_up,
     to_device,
 )
 from fast_plaid_tpu_torch.index.storage import load_index_data
+from fast_plaid_tpu_torch.ops.codec import packed_dim
 
-__all__ = ["reload_index", "LoadedIndex", "default_emb_cache_budget"]
+__all__ = [
+    "reload_index",
+    "LoadedIndex",
+    "default_emb_cache_budget",
+    "layout_cache_bytes",
+    "choose_length_buckets",
+]
 
 
 class LoadedIndex:
@@ -63,12 +75,13 @@ class LoadedIndex:
         self.host_doc_lengths = host_doc_lengths  # [n_docs] int32
 
 
-def default_emb_cache_budget(device: torch.device) -> int:
+def default_emb_cache_budget(device: torch.device, reserve: int = 0) -> int:
     """Default device-memory budget for the rerank cache.
 
     ``FASTPLAID_TPU_EMB_CACHE_BYTES`` overrides. On a GPU: 95% of the free
-    memory that ``torch.cuda.mem_get_info`` reports, less 2 GB of headroom
-    for search temporaries. On the CPU the cache is opt-in (0).
+    memory that ``torch.cuda.mem_get_info`` reports, less ``reserve`` bytes
+    the caller is about to place there and 2 GB of headroom for search
+    temporaries. On the CPU the cache is opt-in (0).
     """
     env = os.environ.get("FASTPLAID_TPU_EMB_CACHE_BYTES")
     if env is not None:
@@ -76,7 +89,63 @@ def default_emb_cache_budget(device: torch.device) -> int:
     if device.type == "cpu":
         return 0
     free, _total = torch.cuda.mem_get_info(device)
-    return max(0, int(0.95 * free) - 2 * 1024**3)
+    return max(0, int(0.95 * (free - reserve)) - 2 * 1024**3)
+
+
+def layout_cache_bytes(doc_lengths, dim: int, length_buckets: int) -> dict:
+    """Device bytes of the rerank caches a resident load could build.
+
+    ``bf16``: the bf16 cache at the single cap; ``bf16_buckets``: the bf16
+    caches of the length buckets ``plan_buckets`` picks for these lengths
+    (None where it keeps one cap); ``q4``: the q4 cache (single cap only).
+    """
+    lens = np.asarray(doc_lengths, np.int64)
+    n = int(lens.size)
+    doc_cap = round_up(max(int(lens.max()) if n else 1, 1), 16)
+    flat = IndexSpec(
+        dim=dim, nbits=0, n_docs=n, n_partitions=0, doc_cap=doc_cap,
+        cell_cap=0, has_ivf=False,
+    )
+    caps = (
+        plan_buckets(lens, doc_cap, max_buckets=length_buckets)
+        if length_buckets > 1 and n
+        else None
+    )
+    bucketed = None
+    if caps:
+        which = np.searchsorted(caps, np.minimum(lens, doc_cap), side="left")
+        counts = np.bincount(which, minlength=len(caps))
+        bucketed = emb_cache_bytes(
+            dataclasses.replace(
+                flat,
+                bucket_caps=tuple(caps),
+                bucket_counts=tuple(int(c) for c in counts),
+            )
+        )
+    return {
+        "bf16": emb_cache_bytes(flat),
+        "bf16_buckets": bucketed,
+        "q4": q4_cache_bytes(flat) if dim % 2 == 0 else None,
+    }
+
+
+def choose_length_buckets(sizes: dict, length_buckets: int, budget: int) -> int:
+    """The ``length_buckets`` a resident load passes to ``to_device``.
+
+    Buckets save device memory and cost time and recall: stage 6 runs once
+    per bucket, and a bucket's candidates past its quota are dropped. So
+    the single cap comes first wherever a rerank cache fits there: the bf16
+    cache, or the q4 tier where the bucketed bf16 caches would not fit
+    either. Buckets are taken where they are what lets the bf16 cache fit,
+    or where no cache fits at all (their residuals are the smaller).
+    """
+    if sizes["bf16_buckets"] is None or sizes["bf16"] <= budget:
+        return 0
+    if sizes["bf16_buckets"] <= budget:
+        return length_buckets
+    if sizes["q4"] is not None and sizes["q4"] <= budget:
+        return 0
+    return length_buckets
 
 
 def _construct(
@@ -86,6 +155,18 @@ def _construct(
     emb_cache_budget: int | None = None,
     length_buckets: int = 4,
 ) -> LoadedIndex:
+    if not low_memory and length_buckets > 1:
+        dim = int(data.centroids.shape[1])
+        sizes = layout_cache_bytes(data.doc_lengths, dim, length_buckets)
+        if emb_cache_budget is None:
+            # The budget once the single-cap codes and residuals are loaded.
+            n_rows = round_up(len(data.doc_lengths) + 1, 8)
+            doc_cap = round_up(max(int(np.max(data.doc_lengths, initial=1)), 1), 16)
+            reserve = n_rows * doc_cap * (4 + packed_dim(dim, data.nbits))
+            layout_budget = default_emb_cache_budget(device, reserve=reserve)
+        else:
+            layout_budget = emb_cache_budget
+        length_buckets = choose_length_buckets(sizes, length_buckets, layout_budget)
     dev, ispec = to_device(
         centroids=data.centroids,
         bucket_weights=data.bucket_weights,

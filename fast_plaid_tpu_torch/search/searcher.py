@@ -459,11 +459,14 @@ def search_on_device(
     # stay float32 on the CPU.
     wire_dtype = np.float16 if on_gpu else np.float32
     # Stage 6 runs its kernels (the fused gather+MaxSim or its dedup variant
-    # over the bf16 cache, the q4 prefilter over the 4-bit cache) whenever
-    # one of the caches is resident on a GPU; stage 4 runs its kernel on any
-    # GPU.
+    # over the bf16 cache or the length buckets' caches, the q4 prefilter
+    # over the 4-bit cache) whenever one of the caches is resident on a GPU;
+    # stage 4 runs its kernel on any GPU.
+    dev = loaded.dev
     use_kernel = on_gpu and (
-        loaded.dev.emb_cache is not None or loaded.dev.emb_q4 is not None
+        dev.emb_cache is not None
+        or dev.emb_q4 is not None
+        or any(bk.emb is not None for bk in dev.buckets)
     )
     est_kernel = on_gpu
 

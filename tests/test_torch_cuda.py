@@ -362,3 +362,103 @@ def test_stage6_takes_the_dedup_kernel_at_long_docs(cuda, monkeypatch, tmp_path)
         torch.testing.assert_close(k_sc, p_sc, rtol=1e-3, atol=1e-3)
         assert k_ids[:, 0].cpu().tolist() == list(range(8))
     fp.close()
+
+
+def _bucketed_index(cuda, g, caps, counts, d=128):
+    """A length-bucketed DeviceIndex over random bf16 bucket caches (pid i
+    lives in bucket i % len(caps)); codes and residuals are never read when
+    the caches are resident."""
+    from fast_plaid_tpu_torch.index.layout import DeviceIndex, DocBucket, IndexSpec
+
+    n_docs = sum(counts)
+    npd = (n_docs + 1 + 7) // 8 * 8
+    doc_bucket = torch.zeros(npd, dtype=torch.int32, device=cuda)
+    doc_row = torch.full((npd,), counts[0], dtype=torch.int32, device=cuda)
+    lengths = torch.zeros(npd, dtype=torch.int32, device=cuda)
+    buckets, start = [], 0
+    for bi, (cap, nb) in enumerate(zip(caps, counts)):
+        lo = caps[bi - 1] + 1 if bi else 8
+        doc_bucket[start : start + nb] = bi
+        doc_row[start : start + nb] = torch.arange(nb, dtype=torch.int32, device=cuda)
+        lengths[start : start + nb] = torch.randint(lo, cap + 1, (nb,), generator=g, device=cuda,
+                                                    dtype=torch.int32)
+        emb = torch.randn((nb + 1, cap, d), generator=g, device=cuda).to(torch.bfloat16)
+        buckets.append(DocBucket(
+            codes=torch.zeros((nb + 1, cap), dtype=torch.int32, device=cuda),
+            residuals=torch.zeros((nb + 1, cap * d // 2), dtype=torch.uint8, device=cuda),
+            emb=emb,
+        ))
+        start += nb
+    empty = torch.zeros(0, dtype=torch.int32, device=cuda)
+    dev = DeviceIndex(
+        centroids=torch.zeros((128, d), device=cuda), bucket_weights=torch.zeros(16, device=cuda),
+        codes=torch.zeros((npd, caps[-1]), dtype=torch.int32, device=cuda), residuals=None,
+        doc_lengths=lengths, ivf=empty, ivf_offsets=empty, ivf_lengths=empty,
+        doc_bucket=doc_bucket, doc_bucket_row=doc_row, buckets=tuple(buckets),
+    )
+    spec = IndexSpec(dim=d, nbits=4, n_docs=n_docs, n_partitions=1, doc_cap=caps[-1], cell_cap=8,
+                     has_ivf=True, bucket_caps=tuple(caps), bucket_counts=tuple(counts))
+    return dev, spec
+
+
+@pytest.mark.parametrize("dedup", ["auto", "0"])
+def test_bucketed_stage6_kernels_match_plain(cuda, monkeypatch, dedup):
+    """Per-bucket stage 6 at the skewed corpus's caps 96 / 176 / 304 (R
+    2,048: quotas 2,048 / 1,400 / 600): the dedup kernel once per bucket (all
+    three pass its gate), or kernel 2 once per bucket with the gate off,
+    against the plain ``_score_bucket_rows``."""
+    from fast_plaid_tpu_torch.search import engine
+
+    monkeypatch.setenv("FASTPLAID_RERANK_DEDUP", dedup)
+    g = torch.Generator(device=cuda).manual_seed(6)
+    caps, counts = (96, 176, 304), (3143, 1873, 748)  # the skewed split, cut 10x
+    dev, spec = _bucketed_index(cuda, g, caps, counts)
+    assert [engine._bucket_quota(2048, spec, i) for i in range(3)] == [2048, 1400, 600]
+    b, r = 256, 2048
+    p2 = torch.argsort(torch.rand((b, spec.n_docs), generator=g, device=cuda), dim=-1)[:, :r]
+    p2 = p2.to(torch.int32)
+    p2[:, -50:] = spec.n_docs  # sentinel tail
+    qs = torch.randn((b, 32, 128), generator=g, device=cuda)
+    before = (maxsim_gather_scores_dedup.launches, maxsim_gather_scores.launches)
+    got, drop_k = engine._rerank_bucketed(dev, qs, p2, ispec=spec, mem_budget=1 << 28, use_kernel=True)
+    launched = (maxsim_gather_scores_dedup.launches - before[0], maxsim_gather_scores.launches - before[1])
+    assert launched == ((3, 0) if dedup == "auto" else (0, 3))
+    want, drop_p = engine._rerank_bucketed(dev, qs, p2, ispec=spec, mem_budget=1 << 28, use_kernel=False)
+    assert torch.equal(drop_k, drop_p)
+    _close(got, want)
+
+
+def test_train_codec_device_past_quantile_limit(cuda):
+    """50,000 held-out tokens at D 384: 19.2M residuals, past
+    ``torch.quantile``'s 2^24 elements; the card gives the CPU's quantiles."""
+    from fast_plaid_tpu_torch.index.device_build import _quantile, train_codec_device
+
+    g = torch.Generator(device=cuda).manual_seed(4)
+    held = torch.randn((50_000, 384), generator=g, device=cuda)
+    held = held / torch.linalg.vector_norm(held, dim=-1, keepdim=True)
+    cent = held[torch.randperm(50_000, generator=g, device=cuda)[:64]]
+    got = train_codec_device(held, cent, 4)
+    res = held - cent[torch.argmax(held @ cent.t(), dim=-1)]
+    with pytest.raises(RuntimeError):
+        torch.quantile(res.reshape(-1), torch.tensor([0.5], device=cuda))
+    q = torch.arange(1, 16, device=cuda, dtype=torch.float32) / 16
+    want = _quantile(res.reshape(-1).cpu(), q.cpu())
+    torch.testing.assert_close(_quantile(res.reshape(-1), q).cpu(), want, rtol=0, atol=0)
+    assert got.bucket_cutoffs.shape == (15,) and got.bucket_weights.shape == (16,)
+    assert (got.bucket_cutoffs[1:] >= got.bucket_cutoffs[:-1]).all()
+
+
+def test_probe_topk_differs_from_a_stable_sort_only_at_ties(cuda):
+    """The probe's ``torch.topk`` over a bf16 [B*Q, 32,768] table (exact ties
+    are common in bf16): its cell set equals a stable sort's top k wherever
+    the k-th and (k+1)-th scores differ."""
+    from fast_plaid_tpu_torch.search import engine
+
+    g = torch.Generator(device=cuda).manual_seed(8)
+    scores = torch.randn((256 * 32, 32_768), generator=g, device=cuda).to(torch.bfloat16)
+    k = 8
+    _, idx = engine._probe_topk(scores, k)
+    vals_s, idx_s = torch.sort(scores, dim=-1, descending=True, stable=True)
+    same = (torch.sort(idx, dim=-1).values == torch.sort(idx_s[:, :k], dim=-1).values).all(dim=-1)
+    tie = vals_s[:, k - 1] == vals_s[:, k]
+    assert bool((same | tie).all())

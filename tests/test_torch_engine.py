@@ -227,12 +227,20 @@ def test_stats_match_jax(index):
 
 
 def test_unported_options_raise(index):
-    """The ``tokens`` estimator is not ported; token matrices and subsets
-    are, and run."""
+    """Every option runs: the ``tokens`` estimator (the JAX package's
+    results, scores atol 1e-4), token matrices and subsets; an unknown
+    estimator raises ValueError."""
     q = torch.from_numpy(index["queries"])
     base = dict(ispec=index["spec_t"], top_k=5, n_ivf_probe=4, n_full_scores=64)
-    with pytest.raises(NotImplementedError):
-        tengine.search_core(index["dev_t"], q, None, approx_mode="tokens", **base)
+    pt, st = tengine.search_core(index["dev_t"], q, None, approx_mode="tokens", **base)
+    pj, sj = jengine.search_core(
+        index["dev_j"], jnp.asarray(index["queries"]), None, approx_mode="tokens",
+        want_tokens=False, **dict(base, ispec=index["spec_j"]),
+    )
+    assert_same_topk(pt.numpy(), st.numpy(), np.asarray(pj), np.asarray(sj))
+    assert pt[-4:, 0].tolist() == [3, 77, 151, 299]
+    with pytest.raises(ValueError):
+        tengine.search_core(index["dev_t"], q, None, approx_mode="token", **base)
     _, _, tok, lens = tengine.search_core(index["dev_t"], q, None, want_tokens=True, **base)
     assert tok.shape == (q.shape[0], 5, index["spec_t"].doc_cap, q.shape[1])
     assert lens.shape == (q.shape[0], 5) and (lens > 0).all()

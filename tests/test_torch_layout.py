@@ -118,6 +118,9 @@ def test_build_emb_cache_block_independent():
 
 
 def test_length_buckets_raise_rather_than_fall_back():
+    """Where plan_buckets chooses buckets the port builds the JAX package's
+    bucketed layout (it no longer raises, and never falls back to the
+    single-cap layout); length_buckets=0 keeps the single cap."""
     host = host_arrays(5, 40, 80)
     lens = host["doc_lengths"].copy()
     lens[:30] = 4  # strong length skew: plan_buckets chooses buckets
@@ -125,6 +128,15 @@ def test_length_buckets_raise_rather_than_fall_back():
     host["codes"] = host["codes"][: lens.sum()]
     host["residuals"] = host["residuals"][: lens.sum()]
     assert tlayout.plan_buckets(lens, 80) is not None
-    with pytest.raises(NotImplementedError):
-        tlayout.to_device(**host, length_buckets=4)
-    tlayout.to_device(**host, length_buckets=0)  # the single-cap layout
+    own, spec_t = tlayout.to_device(**host, length_buckets=4)
+    dev_j, spec_j = jlayout.to_device(**host, length_buckets=4)
+    assert spec_t.bucket_caps == spec_j.bucket_caps != ()
+    assert spec_t.bucket_counts == spec_j.bucket_counts
+    assert own.residuals is None and len(own.buckets) == len(spec_t.bucket_caps)
+    for a, b in zip(own.buckets, dev_j.buckets):
+        assert np.array_equal(a.codes.numpy(), np.asarray(b.codes))
+        assert np.array_equal(a.residuals.numpy(), np.asarray(b.residuals))
+    for f in ("doc_bucket", "doc_bucket_row", "codes"):
+        assert np.array_equal(getattr(own, f).numpy(), np.asarray(getattr(dev_j, f))), f
+    flat, spec0 = tlayout.to_device(**host, length_buckets=0)  # the single-cap layout
+    assert not spec0.bucket_caps and flat.residuals is not None and not flat.buckets
