@@ -95,7 +95,26 @@ Phases, each of which raises (non-zero exit) on failure:
    in [80, 160]) from a chunk generator that draws on the card, searched
    resident (kernel 2 at stage 6: the dedup gate fails there), with its
    seconds and peak device memory.
-11. Print the kernels' JSON record, then the contract line
+11. Quality at BEIR shape through ``tools/quality_parity_torch.run``: the
+   JAX package's committed corpus (``colbert_proxy_corpus``, seed 0, 57,638
+   documents capped at 300 tokens, 200 queries), its exhaustive MaxSim
+   truth on the card (the first 8 queries held against the numpy host path
+   within the bf16 input-rounding tolerance), ``create``, exhaustive search
+   over ``get_embeddings``, the default constructor's cascade (kernels 1
+   and 3 launched) at top_k 100 and pool divisors 4, 8, 16, then a
+   resident reopen (kernels 1 and 4; one tile of kernels against plain).
+   nDCG@10 may fall below the committed JAX figures (``JAX_BEIR_RESULT``)
+   by no more than 0.03 (exact) and 0.05 (cascade). Then 5,000 documents,
+   graded and plain, at pool divisors 2, 4, 8, 16.
+12. The HTTP server, ``serving.make_server(index, port=0)``, over the
+   phase-11 index opened as the CLI opens it (default constructor, every
+   CUDA device): /healthz; the 200 queries as single-query JSON requests
+   from 32 client threads (requests/s, latency p50 / p99, dispatches, mean
+   batch; coalescing required); the same 200 in one b64 request; a subset
+   request; /metrics; /v1/update of 50 documents and /v1/delete of them,
+   each followed by a search showing the membership. Every result must
+   equal ``FastPlaid.search`` up to ties; kernels 1 and 3 must launch.
+13. Print the kernels' JSON record, then the contract line
    ``{"ok": true, "device": {...}}`` as the last line.
 
 Every tile timed per path also gets its device time by kernel
@@ -111,12 +130,14 @@ import argparse
 import dataclasses
 import datetime
 import json
+import multiprocessing
 import os
 import shutil
 import subprocess
 import sys
 import time
 import warnings
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 
 import numpy as np
 
@@ -1963,6 +1984,365 @@ def phase_long_docs(dev, counters, seed: int, n_docs: int = 4096) -> dict:
     return out
 
 
+# The committed JAX run at BEIR shape (the same corpus: colbert_proxy_corpus,
+# seed 0, 57,638 docs, doc_len 300, 200 queries; exhaustive top-10 truth).
+JAX_BEIR_RESULT = "docs/benchmark/results/quality_parity_beir_shape.json"
+# The port may rank no worse than the JAX package on that corpus, by these
+# margins below its nDCG@10 (one-sided).
+EXACT_NDCG_MARGIN, CASCADE_NDCG_MARGIN = 0.03, 0.05
+N_QUALITY_DOCS, N_QUALITY_QUERIES = 57_638, 200
+
+
+def load_quality_tool():
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "quality_parity_torch", os.path.join(ROOT, "tools", "quality_parity_torch.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def metrics_line(m: dict) -> str:
+    return ", ".join(f"{k} {v:.4f}" for k, v in m.items())
+
+
+def check_truth_on_card(docs, queries, truth, n: int = 8) -> dict:
+    """The card's exhaustive top-10 against the float32 numpy host path on
+    the first ``n`` queries. bf16 input rounding moves a score by at most
+    ``tol`` (``synthetic.bf16_score_tolerance``: 8-bit significands, 32
+    per-token maxima), so a document's two scores agree within ``tol``, and
+    a document in only one of the two top-10 lists lies within 2 tol of the
+    host's 10th score (each list's 10th score is within tol of the other's)."""
+    from fast_plaid_tpu_torch.evaluation.synthetic import (
+        bf16_score_tolerance,
+        exact_maxsim_topk,
+    )
+
+    t0 = time.perf_counter()
+    host = exact_maxsim_topk(docs, queries[:n], top_k=100, device="cpu")
+    host_s = time.perf_counter() - t0
+    tol = bf16_score_tolerance(docs, queries[:n])
+    worst = moved = 0
+    for qi, (card_row, host_row) in enumerate(zip(truth[:n], host)):
+        hs = dict(host_row)
+        h10 = host_row[9][1]
+        card10 = [p for p, _ in card_row[:10]]
+        host10 = [p for p, _ in host_row[:10]]
+        for pid, s in card_row[:10]:
+            if pid not in hs:
+                raise AssertionError(f"truth: query {qi} doc {pid} in the card's top-10, "
+                                     "not in the host's top-100")
+            worst = max(worst, abs(s - hs[pid]))
+        for pid in set(card10) ^ set(host10):
+            moved += 1
+            if abs(hs[pid] - h10) > 2 * tol:
+                raise AssertionError(f"truth: query {qi} doc {pid} (host score {hs[pid]}) "
+                                     f"in one top-10 only, beyond 2 x {tol} of {h10}")
+    if worst > tol:
+        raise AssertionError(f"truth: card score off the host's by {worst} > {tol}")
+    log(f"# [quality] truth on the card vs the numpy host path, {n} queries ({host_s:.1f} s "
+        f"on the host): max score diff {worst:.3e} (bf16 tolerance {tol:.4f}); "
+        f"{moved} top-10 ids in one list only, all within 2 x tol of the 10th score")
+    return {"max_diff": worst, "tol": tol, "one_list_only": moved, "host_s": host_s}
+
+
+def phase_quality(dev, counters, index_dir) -> dict:
+    """Phase 11: retrieval quality at BEIR shape through
+    ``tools/quality_parity_torch.run``: the JAX package's committed corpus
+    (colbert_proxy_corpus, seed 0, 57,638 docs, doc_len 300, 200 queries),
+    its exhaustive truth on the card (held against the host on 8 queries),
+    ``create``, exact search over ``get_embeddings``, the default
+    constructor's cascade at top_k 100 and pool divisors 4, 8, 16, then the
+    cascade on a resident reopen (dedup stage 6) with one tile of kernels
+    against plain; last the 5,000-document sweeps (divisors 2, 4, 8, 16),
+    graded and plain."""
+    import torch
+
+    from fast_plaid_tpu_torch.ops.rerank_dedup import dedup_viable
+    from fast_plaid_tpu_torch.search import FastPlaid, engine
+
+    tool = load_quality_tool()
+    with open(os.path.join(ROOT, JAX_BEIR_RESULT)) as f:
+        ref = json.load(f)
+    state: dict = {}
+    counters.zero()
+    t0 = time.perf_counter()
+    out = tool.run(N_QUALITY_DOCS, N_QUALITY_QUERIES, DIM, 0, None, generator="colbert_proxy",
+                   doc_len=300, sweep_divisors=[4, 8, 16], index_dir=index_dir, state=state)
+    run_s = time.perf_counter() - t0
+    launches = counters.read()
+    docs, queries = state["docs"], state["queries"]
+    res = {"out": out, "run_s": run_s, "launches": launches, "n_tokens": state["n_tokens"],
+           **state["seconds"]}
+    log(f"# [quality] BEIR shape: {len(docs)} docs, {state['n_tokens']} tokens (doc_len 300), "
+        f"{len(queries)} queries; corpus {state['seconds']['corpus']:.1f} s, truth on the card "
+        f"{state['seconds']['truth']:.2f} s, create {out['timing_s']['index_build']} s, "
+        f"get_embeddings + exact {out['timing_s']['exact_decompressed_search']} s, cascade "
+        f"{out['timing_s']['cascade_search']} s; run() {run_s:.1f} s; launches {launches}")
+    for name in ("segmented_estimate", "maxsim_q4_gather_scores"):
+        if launches[name] < 1:
+            raise AssertionError(f"quality, default constructor: {name} was not launched")
+    res["truth_check"] = check_truth_on_card(docs, queries, state["truth"])
+
+    # The same cascade on a resident reopen: stage 6 is the dedup kernel.
+    fp = FastPlaid(index_dir, device=str(dev), low_memory=False)
+    loaded = fp.indices[str(dev)]
+    viable = dedup_viable(loaded.dev.emb_cache.shape[0], 256, N_FULL // 2, Q_LEN, DIM)
+    log(f"# [quality] resident reopen: {loaded.ispec}; emb_cache "
+        f"{tuple(loaded.dev.emb_cache.shape)}; dedup_viable={viable}")
+    if not viable:
+        raise AssertionError("quality, resident: dedup_viable does not hold")
+    counters.zero()
+    t0 = time.perf_counter()
+    rows = fp.search(queries, top_k=100, show_progress=False)
+    res["resident_s"] = time.perf_counter() - t0
+    res["launches_resident"] = counters.read()
+    for name in ("segmented_estimate", "maxsim_gather_scores_dedup"):
+        if res["launches_resident"][name] < 1:
+            raise AssertionError(f"quality, resident: {name} was not launched")
+    res["cascade_resident"] = tool.score(rows, state["qrels"], state["qids"])
+    kw = engine_kwargs(loaded, fp.mem_budget)
+    tile = torch.from_numpy(
+        np.concatenate([queries, queries[: 256 - len(queries)]]).astype(np.float16)).to(dev)
+
+    def run_tile(k):
+        return engine.search_impl(loaded.dev, tile, None, use_estimate_kernel=k,
+                                  use_rerank_kernel=k, **kw)
+
+    res["tile_diff"], res["tile_ms"] = compare_tile("quality, resident", run_tile)
+    fp.close()
+
+    for label, got, jax_key in (("exact_decompressed", out["exact_decompressed"], "exact_decompressed"),
+                                ("cascade_default (low_memory + q4)", out["cascade_default"],
+                                 "cascade_default"),
+                                ("cascade resident (dedup)", res["cascade_resident"],
+                                 "cascade_default")):
+        log(f"# [quality] {label}: {metrics_line(got)} | JAX package, committed "
+            f"({jax_key}): {metrics_line(ref[jax_key])}")
+    for div, m in out["pool_divisor_sweep"].items():
+        log(f"# [quality] pool divisor {div}: {metrics_line({k: m[k] for k in tool.METRICS})}, "
+            f"{m['cascade_search_s']} s | JAX package: "
+            f"{metrics_line({k: ref['pool_divisor_sweep'][div][k] for k in tool.METRICS})}")
+    limits = (("exact_decompressed", out["exact_decompressed"], "exact_decompressed",
+               EXACT_NDCG_MARGIN),
+              ("cascade_default", out["cascade_default"], "cascade_default",
+               CASCADE_NDCG_MARGIN),
+              ("cascade resident", res["cascade_resident"], "cascade_default",
+               CASCADE_NDCG_MARGIN))
+    for label, got, jax_key, margin in limits:
+        floor = ref[jax_key]["ndcg@10"] - margin
+        if got["ndcg@10"] < floor:
+            raise AssertionError(f"quality: {label} nDCG@10 {got['ndcg@10']:.4f} below the JAX "
+                                 f"package's {ref[jax_key]['ndcg@10']:.4f} - {margin}")
+
+    # The 5,000-document sweeps: graded qrels (relevance 5..1) and the plain
+    # proxy against its exhaustive truth (the protocol of SCALE.md's cells).
+    res["small"] = {}
+    for generator in ("colbert_proxy_graded", "colbert_proxy"):
+        t0 = time.perf_counter()
+        small = tool.run(5000, N_QUALITY_QUERIES, DIM, 0, None, generator=generator,
+                         sweep_divisors=[2, 4, 8, 16])
+        small["run_s"] = time.perf_counter() - t0
+        res["small"][generator] = small
+        log(f"# [quality] {generator}, 5,000 docs ({small['run_s']:.1f} s): exact_raw "
+            f"{small['exact_raw'] and metrics_line(small['exact_raw'])}; exact_decompressed "
+            f"{metrics_line(small['exact_decompressed'])}; cascade "
+            f"{metrics_line(small['cascade_default'])}")
+        for div, m in small["pool_divisor_sweep"].items():
+            log(f"# [quality] {generator}, 5,000 docs, divisor {div}: "
+                f"{metrics_line({k: m[k] for k in tool.METRICS})}, gap vs exact "
+                f"{m['ndcg10_gap_vs_exact_decompressed']}")
+    res["queries"] = queries
+    return res
+
+
+def http_json(base: str, path: str, payload: dict | None = None):
+    """GET (payload None) or POST JSON; any 4xx or 5xx raises."""
+    import urllib.request
+
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(base + path, data=data,
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=300) as r:
+        body = r.read()
+        return json.loads(body) if r.headers["Content-Type"] == "application/json" else body.decode()
+
+
+def same_rows(label, got_rows, want_rows) -> float:
+    """Server rows ({id, score} dicts) against FastPlaid.search rows, up to ties."""
+    worst = 0.0
+    for qi, (g, w) in enumerate(zip(got_rows, want_rows)):
+        if len(g) != len(w):
+            raise AssertionError(f"{label}: query {qi} has {len(g)} results, search {len(w)}")
+        if not g:
+            continue
+        ok, err = same_topk(np.asarray([[h["id"] for h in g]]), np.asarray([[h["score"] for h in g]]),
+                            np.asarray([[p for p, _ in w]]), np.asarray([[s for _, s in w]]))
+        worst = max(worst, err)
+        if not ok:
+            raise AssertionError(f"{label}: query {qi} differs from FastPlaid.search beyond ties")
+    return worst
+
+
+def http_clients(base: str, queries, n_threads: int) -> list:
+    """One single-query JSON request a query from ``n_threads`` threads;
+    returns (result row, seconds) a query."""
+
+    def one(i):
+        t = time.perf_counter()
+        rows = http_json(base, "/v1/search", {"queries": [queries[i].tolist()], "top_k": TOP_K})
+        return rows["results"][0], time.perf_counter() - t
+
+    with ThreadPoolExecutor(n_threads) as pool:
+        return list(pool.map(one, range(len(queries))))
+
+
+def engine_batch_ms(engine, queries, kw, sizes=(1, 8, 32, 200)) -> dict:
+    """``FastPlaid.search`` alone at each batch size: median ms of 3."""
+    out = {}
+    for n in sizes:
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            engine.search(queries[:n], **kw)
+            times.append((time.perf_counter() - t0) * 1e3)
+        out[n] = float(np.median(times))
+    return out
+
+
+def phase_server(counters, index_dir, queries, seed: int) -> dict:
+    """Phase 12: ``serving.make_server(index, port=0)`` over the phase-11 index
+    opened as the CLI opens it (the default constructor, every CUDA device),
+    on a thread. Traffic: /healthz; the 200 BEIR-shape queries as 200
+    single-query JSON requests from 32 client threads; the same 200 in one b64
+    request; a subset request; /metrics; /v1/update of 50 documents and
+    /v1/delete of them, each followed by a search that shows the membership."""
+    import base64
+    import threading
+
+    from fast_plaid_tpu_torch import serving
+    from fast_plaid_tpu_torch.index import ivf
+    from fast_plaid_tpu_torch.search import fast_plaid
+    from fast_plaid_tpu_torch.search import update as update_mod
+
+    t0 = time.perf_counter()
+    httpd, core = serving.make_server(index_dir, port=0)
+    open_s = time.perf_counter() - t0
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    res: dict = {"open_s": open_s}
+    try:
+        health = http_json(base, "/healthz")
+        n_docs = health["n_docs"]
+        log(f"# [server] opened in {open_s:.2f} s on {health['devices']}: {health}")
+        if health["status"] != "ok" or n_docs != N_QUALITY_DOCS or not core.engine.low_memory:
+            raise AssertionError(f"server: unexpected health {health}")
+        kw = dict(top_k=TOP_K, show_progress=False)
+        want = core.engine.search(queries, **kw)  # the reference, and a warm-up
+        res["engine_ms"] = engine_batch_ms(core.engine, queries, kw)
+        log(f"# [server] FastPlaid.search alone, ms by batch size (median of 3): "
+            f"{res['engine_ms']}")
+
+        # The clients run in a process of their own, as a deployment's would:
+        # 32 client threads in the server's process would hold its GIL.
+        with ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn")) as clients:
+            clients.submit(http_json, base, "/healthz").result()  # the process is up
+            counters.zero()
+            t0 = time.perf_counter()
+            answers = clients.submit(http_clients, base, queries, 32).result()
+            wall = time.perf_counter() - t0
+        res["launches"] = counters.read()
+        lat_ms = np.asarray([a[1] for a in answers]) * 1e3
+        res["single"] = {"requests": len(queries), "wall_s": wall, "rps": len(queries) / wall,
+                         "p50_ms": float(np.percentile(lat_ms, 50)),
+                         "p99_ms": float(np.percentile(lat_ms, 99))}
+        res["single"]["diff"] = same_rows("server, single-query JSON", [a[0] for a in answers], want)
+        stats = core.batcher.stats.snapshot()
+        res["single"]["stats"] = stats
+        log(f"# [server] {len(queries)} single-query JSON requests from 32 threads in {wall:.3f} s "
+            f"= {res['single']['rps']:.1f} requests/s (= queries/s); request latency p50 "
+            f"{res['single']['p50_ms']:.2f} ms, p99 {res['single']['p99_ms']:.2f} ms; "
+            f"{stats['dispatches']} dispatches, mean batch {stats['avg_batch']}, merged "
+            f"{stats['merged_batches']}; equal to FastPlaid.search up to ties (max diff "
+            f"{res['single']['diff']:.2e}); launches {res['launches']}")
+        for name in ("segmented_estimate", "maxsim_q4_gather_scores"):
+            if res["launches"][name] < 1:
+                raise AssertionError(f"server: {name} was not launched")
+        if stats["merged_batches"] < 1 or stats["dispatches"] >= stats["requests"]:
+            raise AssertionError(f"server: no coalescing: {stats}")
+
+        b64 = {"queries_b64": base64.b64encode(queries.astype(np.float32).tobytes()).decode(),
+               "shape": list(queries.shape), "top_k": TOP_K}
+        t0 = time.perf_counter()
+        rows = http_json(base, "/v1/search", b64)["results"]
+        b64_s = time.perf_counter() - t0
+        res["b64"] = {"s": b64_s, "qps": len(queries) / b64_s,
+                      "diff": same_rows("server, b64", rows, want)}
+        log(f"# [server] one b64 request of {len(queries)} queries: {b64_s * 1e3:.1f} ms = "
+            f"{res['b64']['qps']:.1f} queries/s; equal to FastPlaid.search up to ties")
+
+        rng = np.random.default_rng(seed + 12)
+        allowed = sorted({int(p) for p in rng.choice(n_docs, min(2000, n_docs // 4), replace=False)}
+                         | {w[0][0] for w in want[:8]})
+        sub = {"queries": queries[:8].tolist(), "top_k": TOP_K, "subset": [allowed] * 8}
+        rows = http_json(base, "/v1/search", sub)["results"]
+        if any(h["id"] not in set(allowed) for r in rows for h in r):
+            raise AssertionError("server: a subset search returned an id outside the subset")
+        same_rows("server, subset", rows, core.engine.search(queries[:8], subset=[allowed] * 8, **kw))
+        kept = sum(r[0]["id"] == w[0][0] for r, w in zip(rows, want[:8]))
+        log(f"# [server] subset request (8 queries, {len(allowed)} ids each, holding each "
+            f"query's unfiltered top-1): inside the subset, equal to FastPlaid.search up to "
+            f"ties; unfiltered top-1 kept for {kept} of 8")
+
+        text = http_json(base, "/metrics")
+        n_req = len(queries) + 2
+        for needle in (f"fastplaid_requests_total {n_req}", 'le="+Inf"} ' + str(n_req),
+                       'fastplaid_lane_requests_total{lane="interactive"}'):
+            if needle not in text:
+                raise AssertionError(f"server: /metrics lacks {needle!r}")
+        log(f"# [server] /metrics: {len(text.splitlines())} lines, {n_req} requests counted")
+
+        new = corpus_of_lengths(np.full(50, 200), rng)
+        flat = np.concatenate(new)
+        sw = Stopwatch([
+            (update_mod, "update_index", "append"),
+            (fast_plaid, "delete_from_index", "index delete"),
+            (ivf, "build_ivf", "index delete: build_ivf"),
+            (fast_plaid, "reload_index", "reload"),
+        ]).start()
+        t0 = time.perf_counter()
+        up = http_json(base, "/v1/update", {
+            "documents_b64": base64.b64encode(flat.tobytes()).decode(), "dim": DIM,
+            "lengths": [len(d) for d in new]})
+        res["update_s"] = time.perf_counter() - t0
+        res["update_parts"] = sw.take()
+        probes = np.stack([d[:Q_LEN] for d in new])
+        hits = http_json(base, "/v1/search", {"queries": probes.tolist(), "top_k": TOP_K})["results"]
+        if up["n_docs"] != n_docs + 50 or [r[0]["id"] for r in hits] != list(range(n_docs, n_docs + 50)):
+            raise AssertionError(f"server: after /v1/update {up}, probes top-1 "
+                                 f"{[r[0]['id'] for r in hits][:8]}")
+        t0 = time.perf_counter()
+        gone = http_json(base, "/v1/delete", {"subset": list(range(n_docs, n_docs + 50))})
+        res["delete_s"] = time.perf_counter() - t0
+        res["delete_parts"] = sw.take()
+        sw.stop()
+        hits = http_json(base, "/v1/search", {"queries": probes.tolist(), "top_k": TOP_K})["results"]
+        if gone["n_docs"] != n_docs or any(h["id"] >= n_docs for r in hits for h in r):
+            raise AssertionError(f"server: after /v1/delete {gone}, an added id came back")
+        log(f"# [server] /v1/update of 50 docs {res['update_s']:.2f} s (their probes top-1 at ids "
+            f"{n_docs}..{n_docs + 49}), /v1/delete of them {res['delete_s']:.2f} s (n_docs "
+            f"{gone['n_docs']}, none returned); seconds by step: update "
+            f"{res['update_parts']}, delete {res['delete_parts']}")
+        res["stats"] = core.batcher.stats.snapshot()
+    finally:
+        httpd.shutdown()
+        core.close()
+        thread.join(timeout=30)
+    return res
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n-docs", type=int, default=57_638)
@@ -2046,6 +2426,15 @@ def main() -> None:
     skew_res = phase_skewed(dev, counters, args.seed)
     torch.cuda.empty_cache()
     stream_res = phase_streaming(dev, counters, args.seed)
+    torch.cuda.empty_cache()
+    quality_dir = os.path.join(ROOT, "build", "chip_smoke_quality_index")
+    shutil.rmtree(quality_dir, ignore_errors=True)
+    try:
+        quality_res = phase_quality(dev, counters, quality_dir)
+        torch.cuda.empty_cache()
+        server_res = phase_server(counters, quality_dir, quality_res["queries"], args.seed)
+    finally:
+        shutil.rmtree(quality_dir, ignore_errors=True)
 
     for label, r in (("resident (dedup stage 6)", main_res),
                      ("resident, dedup off (per-query stage 6)", k2_res),
@@ -2094,6 +2483,20 @@ def main() -> None:
         f"of 522,931 docs {stream_res['build_s']:.2f} s, "
         f"peak {stream_res['peak_gb']:.2f} GB, on {smi}")
     log(f"# summary [probe ties]: {main_res['probe_ties']}, on {smi}")
+    q, qo = quality_res, quality_res["out"]
+    log(f"# summary [quality, BEIR shape, {N_QUALITY_DOCS} docs, {q['n_tokens']} tokens]: nDCG@10 "
+        f"exact_decompressed {qo['exact_decompressed']['ndcg@10']:.4f}, cascade default "
+        f"{qo['cascade_default']['ndcg@10']:.4f}, cascade resident "
+        f"{q['cascade_resident']['ndcg@10']:.4f}; recall@100 "
+        f"{qo['exact_decompressed']['recall@100']:.4f} / {qo['cascade_default']['recall@100']:.4f}"
+        f" / {q['cascade_resident']['recall@100']:.4f}; truth on the card "
+        f"{q['truth']:.2f} s, corpus {q['corpus']:.1f} s, create "
+        f"{qo['timing_s']['index_build']} s, on {smi}")
+    s1 = server_res["single"]
+    log(f"# summary [server]: {s1['rps']:.1f} requests/s of single-query JSON from 32 threads, "
+        f"p50 {s1['p50_ms']:.2f} ms, p99 {s1['p99_ms']:.2f} ms, {s1['stats']['dispatches']} "
+        f"dispatches, mean batch {s1['stats']['avg_batch']}; one b64 request of 200 queries "
+        f"{server_res['b64']['qps']:.1f} queries/s; launches {server_res['launches']}, on {smi}")
     log(f"# build {build_s:.2f} s, create {main_res['create_s']:.2f} s (metadata included), low_memory "
         f"open {lm_res['load_s']:.2f} s, q4 tier open {q4_res['load_s']:.2f} s, "
         f"host gather {lm_res['gather_ms']:.3f} ms/tile")

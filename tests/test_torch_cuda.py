@@ -462,3 +462,82 @@ def test_probe_topk_differs_from_a_stable_sort_only_at_ties(cuda):
     same = (torch.sort(idx, dim=-1).values == torch.sort(idx_s[:, :k], dim=-1).values).all(dim=-1)
     tie = vals_s[:, k - 1] == vals_s[:, k]
     assert bool((same | tie).all())
+
+
+def test_exact_truth_on_the_card_matches_numpy(cuda):
+    """The blocked bf16-input truth on the card against the float32 numpy
+    path, within ``bf16_score_tolerance``, at default and tiny blocks."""
+    import numpy as np
+
+    from fast_plaid_tpu_torch.evaluation import synthetic
+
+    docs, queries, _ = synthetic.colbert_proxy_corpus(
+        np.random.default_rng(2), 700, 70, dim=128, mean_len=60, max_len=120
+    )
+    docs[3] = docs[3][:1]
+    host = synthetic.exact_maxsim_topk(docs, queries, top_k=20, device="cpu")
+    tol = synthetic.bf16_score_tolerance(docs, queries)
+    for got in (synthetic.exact_maxsim_topk(docs, queries, top_k=20),
+                synthetic._exact_maxsim_topk_blocked(docs, queries, 20, cuda,
+                                                     doc_block=33, q_block=5)):
+        for ra, rb in zip(got, host):
+            sa, sb = [s for _, s in ra], [s for _, s in rb]
+            np.testing.assert_allclose(sa, sb, rtol=0, atol=tol)
+            ib = [p for p, _ in rb]
+            for j, (pid, _) in enumerate(ra):
+                assert pid in ib or abs(sa[j] - sa[-1]) <= tol
+
+
+def test_server_on_the_card_matches_search(cuda, tmp_path):
+    """A port server over a card index (device=None: every CUDA device)
+    answers concurrent single-query requests with FastPlaid.search's
+    results up to ties (1e-3), in fewer dispatches than requests."""
+    import json
+    import threading
+    import urllib.request
+
+    import numpy as np
+
+    from fast_plaid_tpu_torch.search import FastPlaid
+    from fast_plaid_tpu_torch.serving import make_server
+    from fast_plaid_tpu_torch.testing import random_documents, random_queries
+
+    rng = np.random.default_rng(0)
+    docs = random_documents(rng, 2000, 64, 128, variable=True)
+    path = str(tmp_path / "idx")
+    FastPlaid(index=path).create(documents_embeddings=docs)
+    httpd, core = make_server(path, port=0, max_wait_ms=5)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    queries = random_queries(rng, 48, 32, 128)
+    out = [None] * len(queries)
+
+    def ask(i):
+        req = urllib.request.Request(
+            base + "/v1/search",
+            data=json.dumps({"queries": [queries[i].tolist()], "top_k": 10}).encode(),
+            headers={"Content-Type": "application/json"},
+        )
+        with urllib.request.urlopen(req, timeout=120) as r:
+            out[i] = json.loads(r.read())["results"][0]
+
+    try:
+        threads = [threading.Thread(target=ask, args=(i,)) for i in range(len(queries))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        assert all(o is not None for o in out)
+        want = core.engine.search(queries, top_k=10, show_progress=False)
+        stats = core.batcher.stats.snapshot()
+        assert core.health()["devices"] == [f"cuda:{i}" for i in range(torch.cuda.device_count())]
+    finally:
+        httpd.shutdown()
+        core.close()
+    assert stats["dispatches"] < stats["requests"] == len(queries)
+    for got, exp in zip(out, want):
+        sg, se = [h["score"] for h in got], [s for _, s in exp]
+        np.testing.assert_allclose(sg, se, rtol=0, atol=1e-3)
+        ie = [p for p, _ in exp]
+        for j, h in enumerate(got):
+            assert h["id"] in ie or abs(sg[j] - sg[-1]) <= 1e-3

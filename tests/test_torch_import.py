@@ -7,7 +7,7 @@ import subprocess
 import sys
 
 _SCRIPT = r"""
-import importlib, pkgutil, sys
+import importlib, importlib.util, pkgutil, sys
 sys.modules["jax"] = None  # any `import jax` now raises ImportError
 import fast_plaid_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(
@@ -16,8 +16,14 @@ for name in names:
     importlib.import_module(name)
 for name in ("ops.q4cache", "ops.rerank_dedup", "ops.rerank_kernel", "search.load",
              "filtering", "filtering.filtering", "index.appender", "index.deleter",
-             "search.update"):
+             "search.update", "evaluation.evaluation", "evaluation.synthetic",
+             "serving.batcher", "serving.server", "serving.__main__", "utils.tracing",
+             "utils.memory", "utils.profile"):
     assert "fast_plaid_tpu_torch." + name in names, name
+spec = importlib.util.spec_from_file_location("qp", "tools/quality_parity_torch.py")
+tool = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(tool)
+tool.make_corpus(8, 1, 8, 0, "colbert_proxy_graded")
 bad = [m for m in sys.modules if m == "fast_plaid_tpu" or m.startswith("fast_plaid_tpu.")]
 assert not bad, bad
 print(len(names))
@@ -37,5 +43,6 @@ def test_port_imports_without_jax():
     )
     assert out.returncode == 0, out.stderr
     # every module of the slices: ops (q4cache and rerank_dedup among them),
-    # index (appender, deleter), search (update), filtering, utils
-    assert int(out.stdout.strip().splitlines()[-1]) >= 25
+    # index (appender, deleter), search (update), filtering, utils,
+    # evaluation, serving; and the port's quality tool
+    assert int(out.stdout.strip().splitlines()[-1]) >= 35
