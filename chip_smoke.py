@@ -98,7 +98,7 @@ Phases, each of which raises (non-zero exit) on failure:
 11. Quality at BEIR shape through ``tools/quality_parity_torch.run``: the
    JAX package's committed corpus (``colbert_proxy_corpus``, seed 0, 57,638
    documents capped at 300 tokens, 200 queries), its exhaustive MaxSim
-   truth on the card (the first 8 queries held against the numpy host path
+   truth on the card (the first 2 queries held against the numpy host path
    within the bf16 input-rounding tolerance), ``create``, exhaustive search
    over ``get_embeddings``, the default constructor's cascade (kernels 1
    and 3 launched) at top_k 100 and pool divisors 4, 8, 16, then a
@@ -114,7 +114,28 @@ Phases, each of which raises (non-zero exit) on failure:
    request; /metrics; /v1/update of 50 documents and /v1/delete of them,
    each followed by a search showing the membership. Every result must
    equal ``FastPlaid.search`` up to ties; kernels 1 and 3 must launch.
-13. Print the kernels' JSON record, then the contract line
+13. Multi-device search (``fast_plaid_tpu_torch/parallel``), four shards
+   on cuda:0 (one shard a card where there are several). 13a, after 10b:
+   ``build_sharded_index_streaming`` over 10b's corpus with its centroids
+   and codec (no second k-means), beside 10b's single-device index;
+   ``sharded_search`` of 10b's 256 random + 64 planted queries in tiles of
+   256 (kernel 1 once a shard a tile; stage 6 the codec rerank, as in the
+   JAX package: sharded indexes carry no bf16 cache), with the JAX default
+   working budget of 256 MiB; planted hit@1 1.0, every planted top-1 and
+   every common document's score equal to the single device's, no random
+   query's top-1 below it, kernel = plain up to ties on one tile, the tile
+   timed; ``query_sharded_search``
+   of 10b's index (a tile split four ways, kernels 1 and 2 once a part)
+   and ``sharded_search_2d`` on a 2 x 2 mesh over a 2-shard build, a tile
+   each. 13b, after phase 6 on its mutated index directory:
+   ``ShardedFastPlaid`` at 4 shards, then ``load_sharded_lm`` at 4 shards
+   (kernels 1 and 3 once a shard a tile), each against the default
+   constructor's ``FastPlaid.search`` on the same queries, planted hit@1
+   1.0; each again with the single device's ``rank_admit``, where no random
+   query's top-1 may score below the single device's ("auto" resolves per
+   shard, and a shard's quarter of the corpus can resolve to no rank
+   admission).
+14. Print the kernels' JSON record, then the contract line
    ``{"ok": true, "device": {...}}`` as the last line.
 
 Every tile timed per path also gets its device time by kernel
@@ -1230,7 +1251,10 @@ def phase_streaming(dev, counters, seed: int, n_docs: int = 522_931) -> dict:
     corpus). Planted hit@1 1.0; build seconds and peak device memory."""
     import torch
 
-    from fast_plaid_tpu_torch.index.streaming import build_memory_index_streaming
+    from fast_plaid_tpu_torch.index.streaming import (
+        build_memory_index_streaming,
+        train_global_codec,
+    )
     from fast_plaid_tpu_torch.testing import MemoryIndex
 
     rng = np.random.default_rng(seed + 51)
@@ -1257,8 +1281,11 @@ def phase_streaming(dev, counters, seed: int, n_docs: int = 522_931) -> dict:
     torch.cuda.reset_peak_memory_stats(dev)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    idx, ispec = build_memory_index_streaming(chunk_gen, lens, seed=seed, emb_cache=True,
-                                              verbose=True)
+    # The codec is trained apart from the build (the same call the build
+    # makes), so that phase 13's sharded builds reuse it.
+    cent, codec, _ = train_global_codec(chunk_gen, lens, nbits=4, seed=seed)
+    idx, ispec = build_memory_index_streaming(chunk_gen, lens, centroids=cent,
+                                              codec_params=codec, emb_cache=True, verbose=True)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated(dev)
@@ -1283,9 +1310,385 @@ def phase_streaming(dev, counters, seed: int, n_docs: int = 522_931) -> dict:
     res["tile_ms"] = tile_latency(lambda: engine.search_impl(
         idx, tile, None, use_estimate_kernel=True, use_rerank_kernel=True, **kw),
         "streaming index", n=10)
-    del mem, idx
+    # Phase 13a takes the index, its corpus and codec, and frees them.
+    shared = {"idx": idx, "ispec": ispec, "chunk_gen": chunk_gen, "lens": lens, "cent": cent,
+              "codec": codec, "queries": queries, "probe_pids": probe_pids, "kw": kw,
+              "ivf_lengths_host": mem.loaded.ivf_lengths_host}
+    del mem
+    return {"build_s": build_s, "peak_gb": peak / 1e9, "shared": shared, **res}
+
+
+# Phase 13: multi-device search (fast_plaid_tpu_torch/parallel). The JAX
+# package's default working budget (256 MiB) for the sharded searches, as
+# ShardedFastPlaid has it: stage 6's codec rerank then chunks the pool to
+# about 12 candidates a step at 256 queries.
+SHARD_MEM_BUDGET = 256 * 1024 * 1024
+N_SHARDS_ONE_CARD = 4
+
+
+def shard_devices(n: int) -> list:
+    """``n`` mesh slots over the cards: all on cuda:0 on a one-card machine,
+    one card a slot where there are several."""
+    import torch
+
+    n_cards = torch.cuda.device_count()
+    return [torch.device("cuda", i % n_cards) for i in range(n)]
+
+
+def n_shards_here() -> int:
+    import torch
+
+    n_cards = torch.cuda.device_count()
+    return N_SHARDS_ONE_CARD if n_cards == 1 else n_cards
+
+
+class plain_kernels:
+    """Within the block, every parallel/ path runs the plain versions (the
+    kernel flags are read per shard through ``sharded.kernel_flags``)."""
+
+    def __enter__(self):
+        from fast_plaid_tpu_torch.parallel import sharded
+
+        self.real = sharded.kernel_flags
+        sharded.kernel_flags = lambda dev: (False, False)
+        return self
+
+    def __exit__(self, *exc):
+        from fast_plaid_tpu_torch.parallel import sharded
+
+        sharded.kernel_flags = self.real
+
+
+def in_tiles(run, queries, tile: int = 256):
+    """``run(tile) -> (ids, scores)`` over the queries in tiles; numpy."""
+    ids, scores = [], []
+    for s in range(0, len(queries), tile):
+        i, sc = run(queries[s : s + tile])[:2]
+        ids.append(np.asarray(i.cpu() if hasattr(i, "cpu") else i))
+        scores.append(np.asarray(sc.cpu() if hasattr(sc, "cpu") else sc))
+    return np.concatenate(ids), np.concatenate(scores)
+
+
+def rows_to_arrays(rows):
+    return (np.asarray([[p for p, _ in r] for r in rows]),
+            np.asarray([[s for _, s in r] for r in rows]))
+
+
+def against_single(label, got_ids, got_sc, ref_ids, ref_sc, n_rand: int,
+                   lower_ok: bool = False) -> dict:
+    """A sharded top-k against one device's on the same queries (random
+    first, then planted probes from ``n_rand`` on).
+
+    Each shard runs the whole cascade over its own documents: its budget,
+    rank admission and stage-5 pool of R = n_full_scores / 2 apply a shard,
+    so the sharded lists are the top-k of other pools, neither a superset
+    nor a subset of the single device's. What must hold: a document of both
+    lists has one score (within TIE_TOL: exact MaxSim of the same codes),
+    every planted probe's top-1 is the single device's up to ties, and,
+    unless ``lower_ok``, no random query's sharded top-1 scores below the
+    single device's beyond TIE_TOL. The random queries' top-1 agreement
+    (equal up to ties, higher, lower) and the top-k overlap are printed."""
+    same = higher = lower = 0
+    worst = 0.0
+    for qi, (gi, gs, ri, rs) in enumerate(zip(got_ids, got_sc, ref_ids, ref_sc)):
+        tie = gi[0] == ri[0] or abs(gs[0] - rs[0]) <= TIE_TOL
+        if qi >= n_rand and not tie:
+            raise AssertionError(f"{label}: planted probe {qi - n_rand}: top-1 {gi[0]} "
+                                 f"({gs[0]}) against the single device's {ri[0]} ({rs[0]})")
+        if qi < n_rand:
+            same += tie
+            higher += not tie and gs[0] > rs[0]
+            lower += not tie and gs[0] < rs[0]
+        g = dict(zip(gi.tolist(), gs.tolist()))
+        for pid, sc in zip(ri.tolist(), rs.tolist()):
+            if pid in g:
+                worst = max(worst, abs(g[pid] - sc))
+    if worst > TIE_TOL:
+        raise AssertionError(f"{label}: a common document's scores differ by {worst}")
+    if lower and not lower_ok:
+        raise AssertionError(f"{label}: {lower} random queries' top-1 score below the "
+                             f"single device's")
+    overlap = float(np.mean([len(set(a) & set(b)) / len(a) for a, b in zip(got_ids, ref_ids)]))
+    log(f"# [{label}] against one device: planted top-1 equal on all {len(got_ids) - n_rand}; "
+        f"random queries' top-1 equal up to ties {same}/{n_rand}, higher {higher}, lower "
+        f"{lower}; common documents' scores within {worst:.2e}; top-{TOP_K} overlap "
+        f"{overlap:.4f}")
+    return {"top1_same": same, "top1_higher": higher, "top1_lower": lower, "max_diff": worst,
+            "overlap": overlap}
+
+
+def planted_hit1(label, ids, want) -> float:
+    hit = float(np.mean([int(r[0]) == int(p) for r, p in zip(ids, want)]))
+    log(f"# [{label}] planted hit@1: {hit:.4f} over {len(want)} probes")
+    if hit != 1.0:
+        raise AssertionError(f"{label}: planted hit@1 {hit} != 1.0")
+    return hit
+
+
+def need_launches(label, launches, need: dict) -> None:
+    for name, n in need.items():
+        if launches[name] < n:
+            raise AssertionError(f"{label}: {name} launched {launches[name]} times, "
+                                 f"fewer than {n} (once a shard a tile)")
+
+
+def phase_sharded(dev, counters, shared: dict, single: dict) -> dict:
+    """Phase 13a: ``build_sharded_index_streaming`` over phase 10b's corpus,
+    codec and centroids (no second k-means), 4 shards on cuda:0, then
+    ``sharded_search`` of 10b's 256 random + 64 planted queries in tiles of
+    256 (stage 6 is the codec rerank: sharded indexes carry no bf16 cache);
+    ``query_sharded_search`` of 10b's single-device index and
+    ``sharded_search_2d`` on a 2 x 2 mesh, a tile each. 10b's index is
+    freed at the end."""
+    import torch
+
+    from fast_plaid_tpu_torch.index.streaming import build_sharded_index_streaming
+    from fast_plaid_tpu_torch.parallel import (
+        make_mesh,
+        make_mesh_2d,
+        query_sharded_search,
+        replicate_sharded_index,
+        sharded_search,
+        sharded_search_2d,
+    )
+    from fast_plaid_tpu_torch.search import engine
+
+    # The queries as the single-device search received them (float16 wire).
+    queries = shared["queries"].astype(np.float16)
+    probe_pids = shared["probe_pids"]
+    n_rand = len(queries) - len(probe_pids)
+    n_sh = n_shards_here()
+    mesh = make_mesh(devices=shard_devices(n_sh))
+    out: dict = {"n_shards": n_sh, "mem_budget": SHARD_MEM_BUDGET}
     torch.cuda.empty_cache()
-    return {"build_s": build_s, "peak_gb": peak / 1e9, **res}
+    torch.cuda.reset_peak_memory_stats(dev)
+    base_mem = torch.cuda.memory_allocated(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sharded = build_sharded_index_streaming(
+        shared["chunk_gen"], shared["lens"], mesh, centroids=shared["cent"],
+        codec_params=shared["codec"], verbose=True)
+    torch.cuda.synchronize()
+    out["build_s"] = time.perf_counter() - t0
+    out["index_gb"] = (torch.cuda.memory_allocated(dev) - base_mem) / 1e9
+    out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    log(f"# [sharded] {sharded.n_docs_total} docs over {n_sh} shards on "
+        f"{[str(d) for d in mesh.device_list()]} built in {out['build_s']:.2f} s (10b's codec), "
+        f"{out['index_gb']:.2f} GB of shards, peak {out['peak_gb']:.2f} GB with 10b's index "
+        f"resident; {sharded.ispec}; doc_base {sharded.doc_base.tolist()}")
+    kw = dict(top_k=TOP_K, n_ivf_probe=N_PROBE, n_full_scores=N_FULL, mem_budget=SHARD_MEM_BUDGET)
+
+    def run(q):
+        return sharded_search(sharded, q, **kw)
+
+    in_tiles(run, queries[:256])  # warm-up
+    torch.cuda.synchronize()
+    counters.zero()
+    t0 = time.perf_counter()
+    ids, scores = in_tiles(run, queries)
+    torch.cuda.synchronize()
+    search_s = time.perf_counter() - t0
+    out["launches"] = counters.read()
+    n_tiles = -(-len(queries) // 256)
+    out["qps"] = len(queries) / search_s
+    log(f"# [sharded] sharded_search of {len(queries)} queries in tiles of 256: "
+        f"{search_s:.3f} s = {out['qps']:.1f} QPS (mem_budget {SHARD_MEM_BUDGET} B); "
+        f"launches {out['launches']}")
+    need_launches("sharded", out["launches"], {"segmented_estimate": n_sh * n_tiles})
+    if not np.isfinite(scores).all() or (ids < 0).any():
+        raise AssertionError("sharded: an empty or non-finite result")
+    out["hit1"] = planted_hit1("sharded", ids[n_rand:], probe_pids)
+    out["vs_single"] = against_single("sharded", ids, scores, single["ids"], single["scores"],
+                                      n_rand)
+    tile = queries[-256:]
+    tile_dev = torch.from_numpy(tile).to(dev)
+
+    def run_tile(k):
+        if k:
+            return sharded_search(sharded, tile_dev, **kw)
+        with plain_kernels():
+            return sharded_search(sharded, tile_dev, **kw)
+
+    # Kernel path against plain path (no timing: tile_latency times it).
+    with torch.inference_mode():
+        k_ids, k_sc = run_tile(True)
+        p_ids, p_sc = run_tile(False)
+    ok, out["diff"] = same_topk(k_ids.cpu().numpy(), k_sc.cpu().numpy(),
+                                p_ids.cpu().numpy(), p_sc.cpu().numpy())
+    if not ok:
+        raise AssertionError(f"sharded: kernel path and plain path differ beyond ties "
+                             f"({out['diff']})")
+    log(f"# [sharded] kernel path vs plain path on one tile: top-{TOP_K} equal up to ties, "
+        f"max score diff {out['diff']:.3e}")
+    out["tile_ms"] = tile_latency(lambda: sharded_search(sharded, tile_dev, **kw),
+                                  "sharded (4 shards, one tile)", n=10)
+    del sharded
+    torch.cuda.empty_cache()
+
+    # Query sharding: 10b's single-device index (bf16 cache: kernel 2 at
+    # stage 6) over the same mesh slots, the tile split four ways.
+    idx, ispec = shared["idx"], shared["ispec"]
+    qkw = dict(shared["kw"])
+    qkw.pop("ispec")
+    for name in ("cand_cap", "slot_budget"):
+        qkw.pop(name)
+    qkw["approx_mode"] = "auto"
+    qkw["rank_admit"] = None
+    counters.zero()
+    with torch.inference_mode():
+        q_ids, q_sc = query_sharded_search(idx, ispec, tile_dev, mesh,
+                                           ivf_lengths_host=shared["ivf_lengths_host"], **qkw)
+        torch.cuda.synchronize()
+        out["query_launches"] = counters.read()
+        r_ids, r_sc = engine.search_impl(idx, tile_dev, None,
+                                         use_estimate_kernel=True, use_rerank_kernel=True,
+                                         **shared["kw"])
+    need_launches("query-sharded", out["query_launches"],
+                  {"segmented_estimate": n_sh, "maxsim_gather_scores": n_sh})
+    ok, err = same_topk(q_ids.cpu().numpy(), q_sc.cpu().numpy(), r_ids.cpu().numpy(),
+                        r_sc.cpu().numpy())
+    if not ok:
+        raise AssertionError(f"query-sharded: differs from one device beyond ties ({err})")
+    out["query_hit1"] = planted_hit1("query-sharded", q_ids.cpu().numpy()[-len(probe_pids):],
+                                     probe_pids)
+    log(f"# [query-sharded] one tile split over {n_sh} slots: equal to one device up to ties "
+        f"(max diff {err:.2e}); launches {out['query_launches']}")
+    out["query_diff"] = err
+
+    # 2-D: a 2-shard build laid on a 2 x 2 mesh (replica rows split the tile).
+    t0 = time.perf_counter()
+    sharded2 = build_sharded_index_streaming(
+        shared["chunk_gen"], shared["lens"], make_mesh(devices=shard_devices(2)),
+        centroids=shared["cent"], codec_params=shared["codec"])
+    torch.cuda.synchronize()
+    out["build2_s"] = time.perf_counter() - t0
+    rep = replicate_sharded_index(sharded2, make_mesh_2d(2, 2, shard_devices(4)))
+    counters.zero()
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        d_ids, d_sc = sharded_search_2d(rep, tile_dev, **kw)
+        torch.cuda.synchronize()
+        out["tile2d_ms"] = (time.perf_counter() - t0) * 1e3
+    out["launches_2d"] = counters.read()
+    need_launches("2-D", out["launches_2d"], {"segmented_estimate": 4})
+    d_ids, d_sc = d_ids.cpu().numpy(), d_sc.cpu().numpy()
+    out["hit1_2d"] = planted_hit1("2-D", d_ids[-len(probe_pids):], probe_pids)
+    out["vs_single_2d"] = against_single("2-D", d_ids, d_sc, single["ids"][-len(tile):],
+                                         single["scores"][-len(tile):],
+                                         len(tile) - len(probe_pids))
+    log(f"# [2-D] 2-shard build {out['build2_s']:.2f} s; one tile on the 2 x 2 mesh "
+        f"{out['tile2d_ms']:.3f} ms (first call); launches {out['launches_2d']}")
+    del rep, sharded2, shared["idx"], idx
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_sharded_disk(dev, counters, index_dir, queries, probe_q, probe_ids) -> dict:
+    """Phase 13b, on phase 3's index directory after phase 6's mutations:
+    ``ShardedFastPlaid`` at 4 shards against ``FastPlaid.search`` (the
+    default constructor) on the directory, then ``load_sharded_lm`` at 4
+    shards (low_memory + q4 prefilter a shard). Tiles of 256: 256 random
+    queries and the surviving planted probes at their current ids."""
+    import torch
+
+    from fast_plaid_tpu_torch.parallel import ShardedFastPlaid, load_sharded_lm, make_mesh, sharded
+    from fast_plaid_tpu_torch.search import FastPlaid, searcher
+    from fast_plaid_tpu_torch.search.fast_plaid import default_mem_budget
+
+    # Rounded to float16 as the single-device search sends them.
+    n_rand = min(256, len(queries))
+    qs = np.concatenate([queries[:n_rand], probe_q]).astype(np.float16).astype(np.float32)
+    n_sh = n_shards_here()
+    n_tiles = -(-len(qs) // 256)
+    kw = dict(top_k=TOP_K, n_full_scores=N_FULL, n_ivf_probe=N_PROBE)
+    out: dict = {"n_shards": n_sh}
+    fp = FastPlaid(index_dir, device=str(dev))
+    single = rows_to_arrays(fp.search(qs, show_progress=False, **kw))
+    # "auto" over the whole corpus's IVF lengths; the shards resolve it over
+    # theirs (the per-cell max of four quarters), which can drop the rank
+    # admission the single device keeps: their top-1 may then score lower.
+    # With the single device's rank_admit passed, it must not.
+    out["single_rank_admit"] = searcher.last_search_stats()["rank_admit"]
+    loaded = fp.indices[str(dev)]
+    out["single_params"] = sharded._resolve_shard_params(
+        loaded.ivf_lengths_host, loaded.ispec, Q_LEN, N_PROBE, N_FULL, "auto", None)
+    single_docs, single_mean = loaded.ispec.n_docs, float(np.mean(loaded.ivf_lengths_host))
+    fp.close()
+    del fp, loaded
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    sfp = ShardedFastPlaid(index_dir, mesh=make_mesh(devices=shard_devices(n_sh)),
+                           mem_budget_bytes=SHARD_MEM_BUDGET)
+    torch.cuda.synchronize()
+    out["open_s"] = time.perf_counter() - t0
+    sh = sfp.sharded
+    out["shard_params"] = sharded._resolve_shard_params(
+        sh.ivf_lengths_host, sh.ispec, Q_LEN, N_PROBE, N_FULL, "auto", None)
+    log(f"# [ShardedFastPlaid] \"auto\" resolved (approx_mode, rank_admit, slot_budget, "
+        f"cand_cap): one device {out['single_params']} over {single_docs} docs, mean "
+        f"IVF length {single_mean:.2f}; a shard "
+        f"{out['shard_params']} over {sh.ispec.n_docs} docs, mean of the per-cell max "
+        f"{float(np.mean(sh.ivf_lengths_host)):.2f}")
+    in_tiles(lambda q: rows_to_arrays(sfp.search(q, **kw)), qs[:256])  # warm-up
+    counters.zero()
+    t0 = time.perf_counter()
+    ids, scores = in_tiles(lambda q: rows_to_arrays(sfp.search(q, **kw)), qs)
+    torch.cuda.synchronize()
+    search_s = time.perf_counter() - t0
+    out["launches"] = counters.read()
+    out["qps"] = len(qs) / search_s
+    log(f"# [ShardedFastPlaid] {sfp.sharded.n_docs_total} docs over {n_sh} shards, opened in "
+        f"{out['open_s']:.2f} s; {len(qs)} queries in {search_s:.3f} s = {out['qps']:.1f} QPS "
+        f"(mem_budget {SHARD_MEM_BUDGET} B); launches {out['launches']}; stats "
+        f"{searcher.last_search_stats()}")
+    need_launches("ShardedFastPlaid", out["launches"], {"segmented_estimate": n_sh * n_tiles})
+    out["hit1"] = planted_hit1("ShardedFastPlaid", ids[n_rand:], probe_ids)
+    out["vs_single"] = against_single("ShardedFastPlaid", ids, scores, *single, n_rand,
+                                      lower_ok=True)
+    admit = dict(kw, rank_admit=out["single_rank_admit"])
+    ids, scores = in_tiles(lambda q: rows_to_arrays(sfp.search(q, **admit)), qs)
+    out["vs_single_admit"] = against_single(
+        f"ShardedFastPlaid, rank_admit {admit['rank_admit']}", ids, scores, *single, n_rand)
+    del sfp
+    torch.cuda.empty_cache()
+
+    lm_budget = default_mem_budget(dev) // n_sh
+    t0 = time.perf_counter()
+    lm = load_sharded_lm(index_dir, shard_devices(n_sh))
+    torch.cuda.synchronize()
+    out["lm_open_s"] = time.perf_counter() - t0
+    if any(s is None or not s.low_memory or s.dev.emb_q4 is None for s in lm.shards):
+        raise AssertionError("load_sharded_lm: a shard is not low_memory with the q4 cache")
+    lm.search(list(qs[:256]), mem_budget=lm_budget, **kw)  # warm-up
+    torch.cuda.synchronize()
+    counters.zero()
+    with Recorder(searcher, "_lm_candidates") as tiles:
+        t0 = time.perf_counter()
+        rows = lm.search(list(qs), mem_budget=lm_budget, **kw)
+        torch.cuda.synchronize()
+        search_s = time.perf_counter() - t0
+    out["lm_launches"] = counters.read()
+    out["lm_tiles"] = len(tiles.calls)
+    out["lm_qps"] = len(qs) / search_s
+    log(f"# [load_sharded_lm] {n_sh} shards opened in {out['lm_open_s']:.2f} s; {len(qs)} "
+        f"queries in {search_s:.3f} s = {out['lm_qps']:.1f} QPS (mem_budget {lm_budget} B a "
+        f"shard); {out['lm_tiles']} shard tiles; launches {out['lm_launches']}")
+    need_launches("load_sharded_lm", out["lm_launches"],
+                  {"segmented_estimate": max(out["lm_tiles"], n_sh),
+                   "maxsim_q4_gather_scores": max(out["lm_tiles"], n_sh)})
+    if any(len(r) != TOP_K for r in rows):
+        raise AssertionError("load_sharded_lm: a short result came back")
+    lm_ids, lm_sc = rows_to_arrays(rows)
+    out["lm_hit1"] = planted_hit1("load_sharded_lm", lm_ids[n_rand:], probe_ids)
+    out["lm_vs_single"] = against_single("load_sharded_lm", lm_ids, lm_sc, *single, n_rand,
+                                         lower_ok=True)
+    lm_ids, lm_sc = rows_to_arrays(lm.search(list(qs), mem_budget=lm_budget, **admit))
+    out["lm_vs_single_admit"] = against_single(
+        f"load_sharded_lm, rank_admit {admit['rank_admit']}", lm_ids, lm_sc, *single, n_rand)
+    del lm
+    torch.cuda.empty_cache()
+    return out
 
 
 def phase_resident(dev, index_dir, docs, queries, n_queries, probe_pids, counters, seed):
@@ -1876,6 +2279,8 @@ def phase_mutable(dev, index_dir, docs, queries, n_queries, probe_pids, counters
         f"{len(survivors)} survivors; launches {launches}")
     fp.close()
     out["reloads"] = reloads
+    out["probe_q"] = np.stack([doc(o)[:Q_LEN] for o in survivors])
+    out["probe_ids"] = [back[o] for o in survivors]
     return out
 
 
@@ -2007,7 +2412,7 @@ def metrics_line(m: dict) -> str:
     return ", ".join(f"{k} {v:.4f}" for k, v in m.items())
 
 
-def check_truth_on_card(docs, queries, truth, n: int = 8) -> dict:
+def check_truth_on_card(docs, queries, truth, n: int = 2) -> dict:
     """The card's exhaustive top-10 against the float32 numpy host path on
     the first ``n`` queries. bf16 input rounding moves a score by at most
     ``tol`` (``synthetic.bf16_score_tolerance``: 8-bit significands, 32
@@ -2051,7 +2456,7 @@ def phase_quality(dev, counters, index_dir) -> dict:
     """Phase 11: retrieval quality at BEIR shape through
     ``tools/quality_parity_torch.run``: the JAX package's committed corpus
     (colbert_proxy_corpus, seed 0, 57,638 docs, doc_len 300, 200 queries),
-    its exhaustive truth on the card (held against the host on 8 queries),
+    its exhaustive truth on the card (held against the host on 2 queries),
     ``create``, exact search over ``get_embeddings``, the default
     constructor's cascade at top_k 100 and pool divisors 4, 8, 16, then the
     cascade on a resident reopen (dedup stage 6) with one tile of kernels
@@ -2354,6 +2759,11 @@ def main() -> None:
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device available; nothing to check")
+    t_start = time.perf_counter()
+
+    def phase_done(name: str) -> None:
+        log(f"# phase {name} done at {time.perf_counter() - t_start:.1f} s")
+
     # A tile whose device work raised (a failed kernel launch included) is
     # contained by the searcher as empty results and a warning: fail instead.
     warnings.filterwarnings("error", message="search failed", category=RuntimeWarning)
@@ -2386,6 +2796,7 @@ def main() -> None:
 
     phase_kernels(dev, args.n_docs)
     torch.cuda.empty_cache()
+    phase_done("2")
 
     t0 = time.perf_counter()
     docs, rng = planted_corpus(args.n_docs, args.seed)
@@ -2406,14 +2817,22 @@ def main() -> None:
                                                    args.n_queries, probe_pids, counters,
                                                    args.seed)
         torch.cuda.empty_cache()
+        phase_done("3")
         lm_res = phase_low_memory(dev, index_dir, queries, args.n_queries, probe_pids,
                                   counters, main_res["ids"])
         torch.cuda.empty_cache()
+        phase_done("4")
         q4_res = phase_q4_tier(dev, index_dir, main_res["ispec"], queries,
                                args.n_queries, probe_pids, counters)
         torch.cuda.empty_cache()
+        phase_done("5")
         mut_res = phase_mutable(dev, index_dir, docs, queries, args.n_queries, probe_pids,
                                 counters, args.seed)
+        torch.cuda.empty_cache()
+        phase_done("6")
+        disk_res = phase_sharded_disk(dev, counters, index_dir, queries, mut_res["probe_q"],
+                                      mut_res["probe_ids"])
+        phase_done("13b")
     finally:
         shutil.rmtree(index_dir, ignore_errors=True)
     torch.cuda.empty_cache()
@@ -2421,18 +2840,26 @@ def main() -> None:
                                     main_res)
     del docs
     torch.cuda.empty_cache()
+    phase_done("10a")
     long_res = phase_long_docs(dev, counters, args.seed)
     torch.cuda.empty_cache()
+    phase_done("7")
     skew_res = phase_skewed(dev, counters, args.seed)
     torch.cuda.empty_cache()
+    phase_done("8")
     stream_res = phase_streaming(dev, counters, args.seed)
+    phase_done("10b")
+    shard_res = phase_sharded(dev, counters, stream_res.pop("shared"), stream_res)
     torch.cuda.empty_cache()
+    phase_done("13a")
     quality_dir = os.path.join(ROOT, "build", "chip_smoke_quality_index")
     shutil.rmtree(quality_dir, ignore_errors=True)
     try:
         quality_res = phase_quality(dev, counters, quality_dir)
         torch.cuda.empty_cache()
+        phase_done("11")
         server_res = phase_server(counters, quality_dir, quality_res["queries"], args.seed)
+        phase_done("12")
     finally:
         shutil.rmtree(quality_dir, ignore_errors=True)
 
@@ -2497,6 +2924,23 @@ def main() -> None:
         f"p50 {s1['p50_ms']:.2f} ms, p99 {s1['p99_ms']:.2f} ms, {s1['stats']['dispatches']} "
         f"dispatches, mean batch {s1['stats']['avg_batch']}; one b64 request of 200 queries "
         f"{server_res['b64']['qps']:.1f} queries/s; launches {server_res['launches']}, on {smi}")
+    sh, sd = shard_res, disk_res
+    log(f"# summary [sharded, 522,931 docs over {sh['n_shards']} shards on one card]: build "
+        f"{sh['build_s']:.2f} s ({sh['index_gb']:.2f} GB of shards, peak {sh['peak_gb']:.2f} GB "
+        f"beside the single-device index), {sh['qps']:.1f} QPS in tiles of 256, tile p50/p99 "
+        f"{sh['tile_ms'][0]:.3f}/{sh['tile_ms'][1]:.3f} ms (mem_budget {sh['mem_budget']} B), "
+        f"planted hit@1 {sh['hit1']}, kernel = plain up to ties (max diff {sh['diff']:.2e}), "
+        f"top-1 vs one device {sh['vs_single']}, launches {sh['launches']}; query-sharded "
+        f"launches {sh['query_launches']}; 2 x 2 mesh {sh['tile2d_ms']:.3f} ms a tile, "
+        f"{sh['vs_single_2d']}, on {smi}")
+    log(f"# summary [sharded from disk, {sd['n_shards']} shards]: ShardedFastPlaid open "
+        f"{sd['open_s']:.2f} s, {sd['qps']:.1f} QPS, hit@1 {sd['hit1']}, vs FastPlaid "
+        f"{sd['vs_single']}, launches {sd['launches']}; load_sharded_lm open "
+        f"{sd['lm_open_s']:.2f} s, {sd['lm_qps']:.1f} QPS, hit@1 {sd['lm_hit1']}, "
+        f"{sd['lm_tiles']} shard tiles, launches {sd['lm_launches']}, vs FastPlaid "
+        f"{sd['lm_vs_single']}; with the single device's rank_admit "
+        f"{sd['single_rank_admit']}: ShardedFastPlaid {sd['vs_single_admit']}, load_sharded_lm "
+        f"{sd['lm_vs_single_admit']}, on {smi}")
     log(f"# build {build_s:.2f} s, create {main_res['create_s']:.2f} s (metadata included), low_memory "
         f"open {lm_res['load_s']:.2f} s, q4 tier open {q4_res['load_s']:.2f} s, "
         f"host gather {lm_res['gather_ms']:.3f} ms/tile")

@@ -160,6 +160,11 @@ def _ivf_device(
     return (uniq % m).to(torch.int32), ivf_len
 
 
+def _cell_cap(ivf_len_host: np.ndarray, k: int) -> int:
+    """The candidate window of the longest cell, a multiple of 8."""
+    return round_up(max(int(ivf_len_host.max()) if k else 1, 1), 8)
+
+
 def _finalize_ivf(
     codes2d: torch.Tensor,
     lengths: torch.Tensor,
@@ -173,7 +178,7 @@ def _finalize_ivf(
     tensor fetched to the host."""
     ivf_pids, ivf_len_dev = _ivf_device(codes2d, lengths, kp=kp, n_docs=n_docs)
     ivf_len_host = ivf_len_dev.cpu().numpy()
-    cell_cap = round_up(max(int(ivf_len_host.max()) if k else 1, 1), 8)
+    cell_cap = _cell_cap(ivf_len_host, k)
     flat, ivf_off, ivf_len = align_ivf_device(
         ivf_pids, ivf_len_host, k=k, kp=kp, n_docs=n_docs, cell_cap=cell_cap
     )

@@ -50,6 +50,7 @@ __all__ = [
     "quantize_q4_rows",
     "device_index_from_arrays",
     "IVF_ALIGN",
+    "aligned_ivf_len",
     "align_ivf_device",
 ]
 
@@ -62,6 +63,12 @@ def round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
 
+def aligned_ivf_len(ivf_lengths: np.ndarray) -> int:
+    """Flat length of the IVF_ALIGN-aligned layout of these cells."""
+    lens = np.asarray(ivf_lengths, np.int64)
+    return int((-(-lens // IVF_ALIGN)).sum()) * IVF_ALIGN
+
+
 def align_ivf_device(
     ivf_pids: torch.Tensor,
     ivf_len_host: np.ndarray,
@@ -70,6 +77,7 @@ def align_ivf_device(
     kp: int,
     n_docs: int,
     cell_cap: int,
+    pad_ivf_to: int | None = None,
 ) -> tuple[torch.Tensor, np.ndarray, np.ndarray]:
     """Re-lay a compact device IVF (the cells' pid lists back to back) into
     the aligned layout ``to_device`` builds on the host.
@@ -77,6 +85,8 @@ def align_ivf_device(
     Returns (aligned flat pids on ``ivf_pids``'s device, ivf_offsets,
     ivf_lengths as host arrays [kp + 8]). One row gather of IVF_ALIGN pids
     per aligned row; slots past a cell's length hold the sentinel pid.
+    ``pad_ivf_to`` pads the aligned part to at least that many slots, as
+    ``to_device`` does, so the shards of a sharded index share one size.
     """
     lens = np.asarray(ivf_len_host[:k], np.int64)
     nrows_c = -(-lens // IVF_ALIGN)
@@ -90,7 +100,10 @@ def align_ivf_device(
     rem = lens[owner] - IVF_ALIGN * local
 
     device = ivf_pids.device
-    size = n_aligned + round_up(cell_cap, IVF_ALIGN)  # the last window's tail
+    # The last window's tail past the (padded) aligned part.
+    size = round_up(max(pad_ivf_to or n_aligned, n_aligned), IVF_ALIGN) + round_up(
+        cell_cap, IVF_ALIGN
+    )
     flat = torch.full((size,), n_docs, dtype=torch.int32, device=device)
     if n_rows:
         iota = torch.arange(IVF_ALIGN, dtype=torch.int64, device=device)

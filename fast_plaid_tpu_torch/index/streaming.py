@@ -8,14 +8,16 @@ preallocated doc-major tensors, so the token-major corpus never exists
 whole: the peak is the finished index plus one chunk.
 
 The centroids and the codec are global, trained once on a document-prefix
-sample (``train_global_codec``).
+sample (``train_global_codec``). The sharded build
+(``build_sharded_index_streaming``) compresses each shard's contiguous
+document range on its own device and returns a ``parallel.ShardedIndex``.
 """
 
 from __future__ import annotations
 
 import math
 import time
-from typing import Callable
+from typing import TYPE_CHECKING, Callable
 
 import numpy as np
 import torch
@@ -23,15 +25,20 @@ import torch
 from fast_plaid_tpu_torch.index.device_build import (
     DeviceCodec,
     _assemble,
+    _cell_cap,
     _compress_device,
     _finalize_ivf,
+    _ivf_device,
     _layout_docmajor,
     _phase_marker,
     train_codec_device,
 )
 from fast_plaid_tpu_torch.index.layout import (
+    IVF_ALIGN,
     DeviceIndex,
     IndexSpec,
+    align_ivf_device,
+    aligned_ivf_len,
     build_emb_cache,
     quantize_q4_into,
     round_up,
@@ -39,7 +46,14 @@ from fast_plaid_tpu_torch.index.layout import (
 from fast_plaid_tpu_torch.ops import codec
 from fast_plaid_tpu_torch.ops.kmeans import num_partitions_heuristic, train_kmeans
 
-__all__ = ["train_global_codec", "build_memory_index_streaming"]
+if TYPE_CHECKING:
+    from fast_plaid_tpu_torch.parallel.mesh import Mesh
+
+__all__ = [
+    "train_global_codec",
+    "build_memory_index_streaming",
+    "build_sharded_index_streaming",
+]
 
 # k-means subsamples its document-prefix sample to this many points per
 # centroid (the reference streaming build's value).
@@ -204,3 +218,124 @@ def build_memory_index_streaming(
         dev = build_emb_cache(dev, ispec)
         mark("emb_cache", t0)
     return dev, ispec
+
+
+def build_sharded_index_streaming(
+    chunk_gen: ChunkGen,
+    doc_lengths: np.ndarray,
+    mesh: Mesh,
+    *,
+    nbits: int = 4,
+    k: int | None = None,
+    centroids: torch.Tensor | None = None,
+    codec_params: DeviceCodec | None = None,
+    chunk_docs: int = 100_000,
+    kmeans_niters: int = 4,
+    seed: int = 42,
+    verbose: bool = False,
+):
+    """Sharded streaming build over a 1-D mesh: each shard's tensors live
+    only on its device slot; the host holds nothing bigger than a [K]
+    histogram.
+
+    Shard i owns documents [i * per, (i + 1) * per), so ``doc_base`` and
+    ``parallel.sharded_search`` apply unchanged. Given ``centroids`` and
+    ``codec_params`` (a trained codec), no k-means runs. The shapes are the
+    JAX package's: ``round_up(per + 1, 8)`` rows a shard, ``ispec.n_docs``
+    = per, each shard's IVF padded to the largest shard's with its own
+    document count.
+    """
+    from fast_plaid_tpu_torch.parallel.sharded import ShardedIndex
+
+    mark = _phase_marker(verbose)
+    t0 = time.perf_counter()
+    doc_lengths = np.asarray(doc_lengths, np.int64)
+    n_docs = len(doc_lengths)
+    devices = mesh.device_list()
+    n_shards = len(devices)
+    per = -(-n_docs // n_shards)
+
+    if centroids is None or codec_params is None:
+        centroids, codec_params, k = train_global_codec(
+            chunk_gen,
+            doc_lengths,
+            nbits=nbits,
+            k=k,
+            kmeans_niters=kmeans_niters,
+            seed=seed,
+        )
+        t0 = mark(f"codec+kmeans k={k}", t0)
+    k, dim = int(centroids.shape[0]), int(centroids.shape[1])
+    kp = round_up(max(k, 1), 128)
+    doc_cap = round_up(max(int(doc_lengths.max()) if n_docs else 1, 1), 16)
+    np_docs = round_up(per + 1, 8)  # one static shape for every shard
+
+    parts = []
+    for si, device in enumerate(devices):
+        d0, d1 = min(si * per, n_docs), min((si + 1) * per, n_docs)
+        lens_s = doc_lengths[d0:d1]
+        cent_s = centroids.to(device)
+        codes2d, res2d, lengths = _stream_compress_into(
+            lambda a, b, _d0=d0: chunk_gen(_d0 + a, _d0 + b),
+            lens_s,
+            cent_s,
+            codec_params.bucket_cutoffs.to(device),
+            nbits=nbits,
+            doc_cap=doc_cap,
+            np_docs=np_docs,
+            chunk_docs=min(chunk_docs, max(len(lens_s), 1)),
+        )
+        # The shard's compact IVF and its [kp] histogram; aligned below,
+        # once every shard's size is known.
+        ivf_pids, ivf_len = _ivf_device(codes2d, lengths, kp=kp, n_docs=d1 - d0)
+        parts.append((cent_s, codes2d, res2d, lengths, ivf_pids, ivf_len.cpu().numpy(), d0, d1 - d0))
+        t0 = mark(f"shard {si}: docs [{d0}, {d1}) on {device}", t0)
+
+    # One IVF size for every shard, the JAX build's: the largest of the
+    # shards' aligned cells plus their own window tails. Each shard pads
+    # with its own document count (its first zero-length row).
+    caps = [_cell_cap(p[5], k) for p in parts]
+    tails = [round_up(cc, IVF_ALIGN) for cc in caps]
+    ivf_size = max(aligned_ivf_len(p[5][:k]) + t for p, t in zip(parts, tails))
+    shards, shard_lens = [], []
+    for (cent_s, codes2d, res2d, lengths, ivf_pids, ln_host, _, n_local), cc, tail in zip(
+        parts, caps, tails
+    ):
+        device = codes2d.device
+        flat, off, ln = align_ivf_device(
+            ivf_pids, ln_host, k=k, kp=kp, n_docs=n_local, cell_cap=cc,
+            pad_ivf_to=ivf_size - tail,
+        )
+        shard_lens.append(ln[:kp])
+        cent_p = torch.zeros((kp, dim), dtype=torch.float32, device=device)
+        cent_p[:k] = cent_s
+        shards.append(
+            DeviceIndex(
+                centroids=cent_p,
+                bucket_weights=codec_params.bucket_weights.to(device),
+                codes=codes2d,
+                residuals=res2d,
+                doc_lengths=lengths,
+                ivf=flat,
+                ivf_offsets=torch.from_numpy(off).to(device),
+                ivf_lengths=torch.from_numpy(ln).to(device),
+            )
+        )
+    ispec = IndexSpec(
+        dim=dim,
+        nbits=nbits,
+        n_docs=per,  # per-shard local ids; the sentinel row `per` has length 0
+        n_partitions=k,
+        doc_cap=doc_cap,
+        cell_cap=max(caps),
+        has_ivf=True,
+    )
+    return ShardedIndex(
+        shards=shards,
+        ispec=ispec,
+        doc_base=np.asarray([p[6] for p in parts], np.int64),
+        mesh=mesh,
+        n_docs_total=n_docs,
+        # Per-cell max of the shards' [Kp] histograms (zero past K).
+        ivf_lengths_host=np.max(np.stack(shard_lens), axis=0),
+    )

@@ -22,7 +22,7 @@ from pathlib import Path
 
 from fast_plaid_tpu_torch.utils.locking import FileLock
 
-__all__ = ["load_library", "build_info"]
+__all__ = ["load_library", "build_info", "count_launch"]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _FLAGS = [
@@ -41,6 +41,7 @@ _LIB_NAME = "libfast_plaid_kernels.so"
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 _info: dict = {}
+_count_lock = threading.Lock()
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -162,3 +163,10 @@ def check(status: int, what: str) -> None:
     if status != 0:
         msg = f"{what} launch failed with CUDA error code {status}"
         raise RuntimeError(msg)
+
+
+def count_launch(fn) -> None:
+    """Add one to a kernel wrapper's ``launches`` count, under a lock: the
+    shards of one device search from several threads at once."""
+    with _count_lock:
+        fn.launches += 1

@@ -66,7 +66,7 @@ def segmented_estimate(
     """
     if pid_s.device.type == "cpu":
         return segmented_estimate_plain(pid_s, own_s, cell_scores)
-    from fast_plaid_tpu_torch.ops._build import check, load_library
+    from fast_plaid_tpu_torch.ops._build import check, count_launch, load_library
 
     if pid_s.device.type != "cuda":
         msg = f"segmented_estimate: unsupported device {pid_s.device}"
@@ -114,7 +114,7 @@ def segmented_estimate(
         stream,
     )
     check(status, "segmented_estimate")
-    segmented_estimate.launches += 1
+    count_launch(segmented_estimate)
     return out
 
 

@@ -212,7 +212,7 @@ def maxsim_gather_scores_dedup(
     """
     if pids.device.type == "cpu":
         return maxsim_gather_scores_dedup_plain(emb_cache, pids, lens, queries, g=g)
-    from fast_plaid_tpu_torch.ops._build import check, load_library
+    from fast_plaid_tpu_torch.ops._build import check, count_launch, load_library
 
     name = "maxsim_gather_scores_dedup"
     if pids.device.type != "cuda":
@@ -283,7 +283,7 @@ def maxsim_gather_scores_dedup(
             stream,
         )
         check(status, name)
-        maxsim_gather_scores_dedup.launches += 1
+        count_launch(maxsim_gather_scores_dedup)
         out = part if out is None else out.add_(part)
     return out.reshape(b, r)
 

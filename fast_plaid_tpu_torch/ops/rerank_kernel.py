@@ -90,7 +90,7 @@ def maxsim_gather_scores(
     """
     if pids.device.type == "cpu":
         return maxsim_gather_scores_plain(emb_cache, pids, lens, queries)
-    from fast_plaid_tpu_torch.ops._build import check, load_library
+    from fast_plaid_tpu_torch.ops._build import check, count_launch, load_library
 
     if pids.device.type != "cuda":
         msg = f"maxsim_gather_scores: unsupported device {pids.device}"
@@ -150,7 +150,7 @@ def maxsim_gather_scores(
             stream,
         )
         check(status, "maxsim_gather_scores")
-        maxsim_gather_scores.launches += 1
+        count_launch(maxsim_gather_scores)
         out = part if out is None else out.add_(part)
     return out
 
@@ -217,7 +217,7 @@ def maxsim_q4_gather_scores(
     """
     if pids.device.type == "cpu":
         return maxsim_q4_gather_scores_plain(emb_q4, q4_scale, pids, lens, queries)
-    from fast_plaid_tpu_torch.ops._build import check, load_library
+    from fast_plaid_tpu_torch.ops._build import check, count_launch, load_library
 
     name = "maxsim_q4_gather_scores"
     if pids.device.type != "cuda":
@@ -288,7 +288,7 @@ def maxsim_q4_gather_scores(
             stream,
         )
         check(status, name)
-        maxsim_q4_gather_scores.launches += 1
+        count_launch(maxsim_q4_gather_scores)
         out = part if out is None else out.add_(part)
     return out
 

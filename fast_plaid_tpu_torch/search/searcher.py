@@ -27,7 +27,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from fast_plaid_tpu_torch.index.layout import round_up
+from fast_plaid_tpu_torch.index.layout import DeviceIndex, round_up
 from fast_plaid_tpu_torch.search.engine import (
     candidate_capacity,
     candidates_core,
@@ -49,6 +49,7 @@ __all__ = [
     "normalize_subset",
     "last_search_stats",
     "host_gather_rows",
+    "kernel_flags",
 ]
 
 # Stats of the most recent search_on_device call, keyed by thread id.
@@ -74,6 +75,25 @@ def last_search_stats() -> dict:
             },
         )
     )
+
+
+def kernel_flags(dev: DeviceIndex) -> tuple[bool, bool]:
+    """(use_estimate_kernel, use_rerank_kernel) for the device ``dev`` lives
+    on, never the process default device.
+
+    Stage 4 runs its kernel on any GPU. Stage 6 runs its kernels (the fused
+    gather+MaxSim or its dedup variant over the bf16 cache or the length
+    buckets' caches, the q4 prefilter over the 4-bit cache) whenever one of
+    the caches is resident on a GPU; without one it is the codec rerank in
+    plain PyTorch.
+    """
+    on_gpu = dev.centroids.device.type == "cuda"
+    rerank = on_gpu and (
+        dev.emb_cache is not None
+        or dev.emb_q4 is not None
+        or any(bk.emb is not None for bk in dev.buckets)
+    )
+    return on_gpu, rerank
 
 
 def normalize_queries(queries_embeddings) -> list[np.ndarray]:
@@ -458,17 +478,7 @@ def search_on_device(
     # lose ~5e-4 relative in float16; the engine upcasts on arrival), and
     # stay float32 on the CPU.
     wire_dtype = np.float16 if on_gpu else np.float32
-    # Stage 6 runs its kernels (the fused gather+MaxSim or its dedup variant
-    # over the bf16 cache or the length buckets' caches, the q4 prefilter
-    # over the 4-bit cache) whenever one of the caches is resident on a GPU;
-    # stage 4 runs its kernel on any GPU.
-    dev = loaded.dev
-    use_kernel = on_gpu and (
-        dev.emb_cache is not None
-        or dev.emb_q4 is not None
-        or any(bk.emb is not None for bk in dev.buckets)
-    )
-    est_kernel = on_gpu
+    est_kernel, use_kernel = kernel_flags(loaded.dev)
 
     def make_tile(start: int):
         end = min(start + b_tile, nq)
@@ -584,7 +594,7 @@ def search_on_device(
                                 sentinel_pid=ispec.sentinel_pid,
                                 pool=rescue_pool(top_k),
                                 mem_budget=mem_budget,
-                                use_kernel=on_gpu,
+                                use_kernel=use_kernel,
                             )
                         fut = pool.submit(gather_stage, *_to_host_async(p2))
                         job = (tile_dev, p2, stats, fut)

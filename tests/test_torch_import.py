@@ -18,7 +18,8 @@ for name in ("ops.q4cache", "ops.rerank_dedup", "ops.rerank_kernel", "search.loa
              "filtering", "filtering.filtering", "index.appender", "index.deleter",
              "search.update", "evaluation.evaluation", "evaluation.synthetic",
              "serving.batcher", "serving.server", "serving.__main__", "utils.tracing",
-             "utils.memory", "utils.profile"):
+             "utils.memory", "utils.profile", "parallel", "parallel.mesh", "parallel.sharded",
+             "parallel.mesh2d", "parallel.lm_sharded", "parallel.api"):
     assert "fast_plaid_tpu_torch." + name in names, name
 spec = importlib.util.spec_from_file_location("qp", "tools/quality_parity_torch.py")
 tool = importlib.util.module_from_spec(spec)
@@ -44,5 +45,5 @@ def test_port_imports_without_jax():
     assert out.returncode == 0, out.stderr
     # every module of the slices: ops (q4cache and rerank_dedup among them),
     # index (appender, deleter), search (update), filtering, utils,
-    # evaluation, serving; and the port's quality tool
-    assert int(out.stdout.strip().splitlines()[-1]) >= 35
+    # evaluation, serving, parallel; and the port's quality tool
+    assert int(out.stdout.strip().splitlines()[-1]) >= 41
