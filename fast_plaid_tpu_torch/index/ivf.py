@@ -1,17 +1,17 @@
-"""Inverted-file construction and splicing (numpy, on the host).
+"""Inverted-file construction and splicing, on the host.
 
-A copy of ``fast_plaid_tpu/index/ivf.py``: ``build_ivf`` (its numpy path)
-and ``splice_ivf``. The reference's optional C++ branch for large builds
-lives in the JAX package's ``native`` module, which cannot be imported
-without jax; the numpy path gives the identical (cell, pid)-sorted,
-per-cell-deduped lists.
+A copy of ``fast_plaid_tpu/index/ivf.py``: ``build_ivf`` and ``splice_ivf``.
+As in the JAX package, a build of at least 1M codes goes through the C++
+host kernel (``fast_plaid_tpu_torch.native``) where it is built; smaller
+builds, and every build without it, take the numpy path. Both give the
+identical (cell, pid)-sorted, per-cell-deduped lists.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["build_ivf", "splice_ivf"]
+__all__ = ["build_ivf", "build_ivf_numpy", "splice_ivf"]
 
 
 def build_ivf(
@@ -30,6 +30,21 @@ def build_ivf(
             np.zeros((0,), dtype=np.int32),
             np.zeros((n_partitions,), dtype=np.int64),
         )
+    if codes.size >= 1_000_000:  # the native path pays off on large builds
+        from fast_plaid_tpu_torch import native
+
+        result = native.build_ivf_native(codes, doc_lengths, n_partitions)
+        if result is not None:
+            return result
+    return build_ivf_numpy(codes, doc_lengths, n_partitions)
+
+
+def build_ivf_numpy(
+    codes: np.ndarray, doc_lengths: np.ndarray, n_partitions: int
+) -> tuple[np.ndarray, np.ndarray]:
+    """``build_ivf``'s numpy path (one ``np.unique`` over (cell, pid) keys),
+    for at least one document and one code."""
+    n_docs = int(len(doc_lengths))
     pids = np.repeat(
         np.arange(n_docs, dtype=np.int64), np.asarray(doc_lengths, dtype=np.int64)
     )

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from fast_plaid_tpu_torch.ops import codec
+from fast_plaid_tpu_torch.utils.devices import default_device
 
 __all__ = [
     "DeviceIndex",
@@ -223,7 +224,7 @@ def to_device(
     ivf: np.ndarray | None,
     ivf_lengths: np.ndarray | None,
     nbits: int,
-    device: torch.device | str = "cpu",
+    device: torch.device | str | None = None,
     doc_cap: int | None = None,
     cell_cap: int | None = None,
     pad_docs_to: int | None = None,
@@ -238,8 +239,10 @@ def to_device(
     up to that many length buckets (device-resident residuals only), taken
     where ``plan_buckets`` finds the corpus skewed enough to pay off: each
     bucket holds its documents' residuals at its own cap, and
-    ``DeviceIndex.residuals`` is None.
+    ``DeviceIndex.residuals`` is None. ``device`` None is the CUDA card, and
+    raises without one (pass ``device="cpu"`` for the CPU).
     """
+    device = default_device(device)
     k, dim = centroids.shape
     n_real_docs = int(len(doc_lengths))
     n_docs = max(pad_docs_to or n_real_docs, n_real_docs)

@@ -22,7 +22,7 @@ from pathlib import Path
 
 from fast_plaid_tpu_torch.utils.locking import FileLock
 
-__all__ = ["load_library", "build_info", "count_launch"]
+__all__ = ["load_library", "build_info", "build_root", "count_launch"]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _FLAGS = [
@@ -65,7 +65,9 @@ _SIGNATURES = {
 }
 
 
-def _build_root() -> Path:
+def build_root() -> Path:
+    """Where the package's native builds go: ``build/fast_plaid_tpu_torch`` beside
+    the package, or ``FASTPLAID_TORCH_BUILD_DIR``."""
     env = os.environ.get("FASTPLAID_TORCH_BUILD_DIR")
     if env:
         return Path(env)
@@ -137,7 +139,7 @@ def load_library() -> ctypes.CDLL:
         for src in sources:
             digest.update(src.name.encode())
             digest.update(src.read_bytes())
-        out_dir = _build_root() / digest.hexdigest()[:16]
+        out_dir = build_root() / digest.hexdigest()[:16]
         lib_path = out_dir / _LIB_NAME
         log_path = out_dir / "nvcc.log"
         if not lib_path.exists():

@@ -35,6 +35,7 @@ from fast_plaid_tpu_torch.search.searcher import (
     normalize_subset,
     search_on_device,
 )
+from fast_plaid_tpu_torch.utils.devices import NO_CUDA
 from fast_plaid_tpu_torch.utils.locking import FileLock, Timeout
 
 __all__ = ["FastPlaid", "resolve_devices", "default_mem_budget"]
@@ -64,8 +65,7 @@ def resolve_devices(device: str | list[str] | None) -> list[torch.device]:
     """
     if device is None:
         if not torch.cuda.is_available():
-            msg = "No CUDA device available; pass device='cpu' to run on the CPU."
-            raise RuntimeError(msg)
+            raise RuntimeError(NO_CUDA)
         return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
     specs = [device] if isinstance(device, str) else list(device)
     out: list[torch.device] = []

@@ -10,6 +10,7 @@ import numpy as np
 import torch
 
 from fast_plaid_tpu_torch.ops import kmeans as kmeans_ops
+from fast_plaid_tpu_torch.utils.devices import default_device
 
 __all__ = ["compute_kmeans"]
 
@@ -22,14 +23,18 @@ def compute_kmeans(
     seed: int = 42,
     n_samples_kmeans: int | None = None,
     num_partitions: int | None = None,
-    device: torch.device | str = "cpu",
+    device: torch.device | str | None = None,
 ) -> np.ndarray:
     """Sample documents, pick K, train k-means; returns [K, dim] f32 L2-normalized.
+
+    Trains on ``device``: None is the CUDA card, and raises without one
+    (pass ``device="cpu"`` for the CPU).
 
     Sampling: min(1 + 16*sqrt(120*N), N) documents. K:
     2^floor(log2(16*sqrt(estimated_total_tokens))) unless given, capped at
     the sampled token count.
     """
+    device = default_device(device)
     num_documents = len(documents_embeddings)
     if n_samples_kmeans is None:
         n_samples_kmeans = kmeans_ops.sample_size_heuristic(num_documents)

@@ -27,6 +27,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from fast_plaid_tpu_torch import native
 from fast_plaid_tpu_torch.index.layout import DeviceIndex, round_up
 from fast_plaid_tpu_torch.search.engine import (
     candidate_capacity,
@@ -168,14 +169,22 @@ def _tile_size(ispec, q_cap: int, mem_budget: int, n_queries: int) -> int:
 
 
 def _gather_windows(
-    src: np.ndarray, offs: np.ndarray, lens: np.ndarray, cap: int, pin: bool
+    src: np.ndarray,
+    offs: np.ndarray,
+    lens: np.ndarray,
+    cap: int,
+    pin: bool,
+    use_native: bool,
 ) -> torch.Tensor:
     """Rows [off, off + len) of ``src`` [T, ...] for every window, zero-padded
     to ``cap`` rows: [W, cap, ...], in pinned memory with ``pin``.
 
-    Tokens of one document are contiguous, so each window is one slice of an
-    overlapping-window view of ``src``, copied by ``index_select``. Windows
-    that the end of ``src`` cuts short are copied one by one.
+    The C++ host gather (``native.gather_windows_u8``) writes straight into
+    the output where it is built and ``use_native`` holds. Otherwise: tokens
+    of one document are contiguous, so each window is one slice of an
+    overlapping-window view of ``src``, copied by ``index_select``; windows
+    that the end of ``src`` cuts short are copied one by one. Both clamp
+    the start to [0, T) and give the same bytes.
     """
     t = src.shape[0]
     w = offs.shape[0]
@@ -184,6 +193,8 @@ def _gather_windows(
         warnings.simplefilter("ignore", UserWarning)
         src_t = torch.from_numpy(src)
     out = torch.empty((w, cap, *rest), dtype=src_t.dtype, pin_memory=pin)
+    if use_native and native.gather_windows_u8(src, offs, lens, cap, out=out) is not None:
+        return out
     n_win = t - cap + 1
     if n_win > 0:
         win = src_t.as_strided((n_win, cap, *rest), (src_t.stride(0), *src_t.stride()))
@@ -202,15 +213,19 @@ def _gather_windows(
     return out
 
 
-def host_gather_rows(loaded: LoadedIndex, pids: np.ndarray, *, pin: bool = False):
+def host_gather_rows(
+    loaded: LoadedIndex, pids: np.ndarray, *, pin: bool = False, use_native: bool = True
+):
     """Gather the token windows of ``pids`` [B, R] from the host-RAM arrays.
 
     Returns CPU tensors (codes_rows [B, R, doc_cap] int32, res_rows
     [B, R, doc_cap, PD] uint8, tok_valid [B, R, doc_cap] bool), in pinned
     memory with ``pin``. Tokens past a document's length are zero, and pids
     outside [0, n_docs) give empty rows. This is low_memory's streaming
-    step: only these rows cross to the device. (The JAX package gathers with
-    its C++ extension; this is a torch gather on the host.)
+    step: only these rows cross to the device. The codes (int32, 4 bytes a
+    row) and the residuals go through the C++ host gather, as in the JAX
+    package; ``use_native=False``, or a host where it is not built, takes
+    the torch gather.
     """
     doc_cap = loaded.ispec.doc_cap
     n_docs = len(loaded.host_doc_lengths)
@@ -219,8 +234,8 @@ def host_gather_rows(loaded: LoadedIndex, pids: np.ndarray, *, pin: bool = False
     lens = np.where((pids < 0) | (pids >= n_docs), 0, loaded.host_doc_lengths[safe])
     lens = np.minimum(lens, doc_cap).reshape(-1)
     offs = np.asarray(loaded.host_doc_offsets, np.int64)[safe].reshape(-1)
-    codes = _gather_windows(loaded.host_codes, offs, lens, doc_cap, pin)
-    res = _gather_windows(loaded.host_residuals, offs, lens, doc_cap, pin)
+    codes = _gather_windows(loaded.host_codes, offs, lens, doc_cap, pin, use_native)
+    res = _gather_windows(loaded.host_residuals, offs, lens, doc_cap, pin, use_native)
     tok_valid = torch.from_numpy(np.arange(doc_cap) < lens[:, None])
     shape = (*pids.shape, doc_cap)
     return (

@@ -206,7 +206,7 @@ def test_bucketed_layout_saves_memory(skewed):
     dev_j, spec_j = jlayout.to_device(**host, length_buckets=4)
     dev_j = jlayout.build_emb_cache(dev_j, spec_j)
     carried, spec_c = carry(dev_j, spec_j)
-    own, spec_t = tlayout.to_device(**host, length_buckets=4)
+    own, spec_t = tlayout.to_device(**host, length_buckets=4, device="cpu")
     own = tlayout.build_emb_cache(own, spec_t, block=64)
     assert spec_t == spec_c and spec_t.bucket_caps
     for f in ("codes", "doc_lengths", "doc_bucket", "doc_bucket_row", "ivf", "ivf_offsets"):
@@ -215,7 +215,7 @@ def test_bucketed_layout_saves_memory(skewed):
         assert torch.equal(a.codes, b.codes) and torch.equal(a.residuals, b.residuals)
         ea, eb = a.emb.float().numpy(), b.emb.float().numpy()
         assert (np.abs(ea - eb) <= ulp_bf16(eb)).all()
-    flat_t, flat_spec = tlayout.to_device(**host, length_buckets=0)
+    flat_t, flat_spec = tlayout.to_device(**host, length_buckets=0, device="cpu")
     full = flat_t.residuals.numel()
     bucketed = sum(bk.residuals.numel() for bk in own.buckets)
     assert bucketed < 0.55 * full

@@ -541,3 +541,84 @@ def test_server_on_the_card_matches_search(cuda, tmp_path):
         ie = [p for p, _ in exp]
         for j, h in enumerate(got):
             assert h["id"] in ie or abs(sg[j] - sg[-1]) <= 1e-3
+
+
+def _random_bert(seed: int, hidden: int = 256, layers: int = 2, heads: int = 4):
+    """A random BertColbert in the JAX params layout: std 0.02 weights, LayerNorm
+    gains 1, biases 0 (the colbertv2.0 init at a smaller width)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    config = {"hidden_size": hidden, "num_hidden_layers": layers, "num_attention_heads": heads,
+              "intermediate_size": 4 * hidden, "vocab_size": 1000, "max_position_embeddings": 192,
+              "type_vocab_size": 2, "layer_norm_eps": 1e-12}
+
+    def w(*shape):
+        return (rng.standard_normal(shape) * 0.02).astype(np.float32)
+
+    def dense(i, o):
+        return {"w": w(i, o), "b": np.zeros(o, np.float32)}
+
+    def ln(n):
+        return {"g": np.ones(n, np.float32), "b": np.zeros(n, np.float32)}
+
+    h = hidden
+    params = {
+        "word_emb": w(1000, h), "pos_emb": w(192, h), "type_emb": w(2, h), "emb_ln": ln(h),
+        "layers": [{"q": dense(h, h), "k": dense(h, h), "v": dense(h, h), "attn_out": dense(h, h),
+                    "attn_ln": ln(h), "ffn_in": dense(h, 4 * h), "ffn_out": dense(4 * h, h),
+                    "ffn_ln": ln(h)} for _ in range(layers)],
+        "projection": w(h, 128),
+    }
+    return params, config
+
+
+def test_bert_forward_bf16_on_the_card_matches_f32(cuda, monkeypatch):
+    """The card's bf16 forward (f32 results through ``out_dtype`` where the
+    installed PyTorch has it) against the float32 forward of the same module
+    on the card and on the CPU: min token cosine >= 0.99 (the bf16 bound of
+    ``jax_encoder.py``); the float32 forwards agree within 1e-4."""
+    from fast_plaid_tpu_torch.models import bert_forward, params_from_jax
+
+    params, config = _random_bert(0)
+    model = params_from_jax(params, config, device=cuda)
+    cpu_model = params_from_jax(params, config, device="cpu")
+    g = torch.Generator().manual_seed(1)
+    lens = torch.tensor([180, 64, 120, 33, 2])
+    ids = torch.randint(1000, (5, 180), generator=g)
+    mask = (torch.arange(180) < lens[:, None]).long()
+    keep = mask.bool()
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)  # full f32
+    with torch.inference_mode():
+        bf16 = bert_forward(model, ids.to(cuda), mask.to(cuda))[keep.to(cuda)].cpu()
+        f32 = bert_forward(model, ids.to(cuda), mask.to(cuda), compute_dtype=torch.float32)
+        f32 = f32[keep.to(cuda)].cpu()
+        ref = bert_forward(cpu_model, ids, mask, compute_dtype=torch.float32)[keep]
+    assert bf16.dtype == torch.float32 and bf16.shape == (int(lens.sum()), 128)
+    assert float((bf16 * f32).sum(-1).min()) >= 0.99
+    assert float((f32 - ref).abs().max()) <= 1e-4
+
+
+def test_native_gather_into_pinned_out(cuda):
+    """The native host gather writes straight into a pinned buffer, byte for
+    byte what the torch gather gives, and the buffer copies to the card."""
+    import numpy as np
+
+    from fast_plaid_tpu_torch import native
+    from fast_plaid_tpu_torch.search import searcher
+
+    rng = np.random.default_rng(2)
+    res = rng.integers(0, 255, (20_000, 64)).astype(np.uint8)
+    codes = rng.integers(0, 2**31 - 1, 20_000).astype(np.int32)
+    starts = rng.integers(-5, 20_050, 1024)
+    lens = np.minimum(rng.integers(0, 300, 1024), 160)
+    for src in (res, codes):
+        out = torch.empty((1024, 160, *src.shape[1:]), dtype=torch.from_numpy(src).dtype,
+                          pin_memory=True)
+        calls = native.gather_windows_u8.calls
+        assert native.gather_windows_u8(src, starts, lens, 160, out=out) is out
+        assert native.AVAILABLE and native.gather_windows_u8.calls == calls + 1
+        assert out.is_pinned()
+        want = searcher._gather_windows(src, starts, lens, 160, False, use_native=False)
+        assert torch.equal(out, want)
+        assert torch.equal(out.to(cuda, non_blocking=True).cpu(), want)

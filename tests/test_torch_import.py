@@ -19,7 +19,8 @@ for name in ("ops.q4cache", "ops.rerank_dedup", "ops.rerank_kernel", "search.loa
              "search.update", "evaluation.evaluation", "evaluation.synthetic",
              "serving.batcher", "serving.server", "serving.__main__", "utils.tracing",
              "utils.memory", "utils.profile", "parallel", "parallel.mesh", "parallel.sharded",
-             "parallel.mesh2d", "parallel.lm_sharded", "parallel.api"):
+             "parallel.mesh2d", "parallel.lm_sharded", "parallel.api", "native", "models",
+             "models.encoder", "models.torch_encoder", "utils.devices"):
     assert "fast_plaid_tpu_torch." + name in names, name
 spec = importlib.util.spec_from_file_location("qp", "tools/quality_parity_torch.py")
 tool = importlib.util.module_from_spec(spec)
@@ -27,6 +28,7 @@ spec.loader.exec_module(tool)
 tool.make_corpus(8, 1, 8, 0, "colbert_proxy_graded")
 bad = [m for m in sys.modules if m == "fast_plaid_tpu" or m.startswith("fast_plaid_tpu.")]
 assert not bad, bad
+assert "transformers" not in sys.modules  # the encoders import it at first use only
 print(len(names))
 """
 
@@ -45,5 +47,5 @@ def test_port_imports_without_jax():
     assert out.returncode == 0, out.stderr
     # every module of the slices: ops (q4cache and rerank_dedup among them),
     # index (appender, deleter), search (update), filtering, utils,
-    # evaluation, serving, parallel; and the port's quality tool
-    assert int(out.stdout.strip().splitlines()[-1]) >= 41
+    # evaluation, serving, parallel, native, models; and the port's quality tool
+    assert int(out.stdout.strip().splitlines()[-1]) >= 46

@@ -71,7 +71,7 @@ def test_carried_index_equals_port_layout(n, length):
     dev_j, spec_j = jlayout.to_device(**host)
     dev_j = jlayout.build_emb_cache(dev_j, spec_j, block=16)
     carried, spec_c = tlayout.device_index_from_arrays(*export(dev_j, spec_j), "cpu")
-    own, spec_t = tlayout.to_device(**host)
+    own, spec_t = tlayout.to_device(**host, device="cpu")
     own = tlayout.build_emb_cache(own, spec_t, block=16)
     assert spec_c == spec_t
     for f in ("codes", "residuals", "doc_lengths", "ivf", "ivf_offsets", "ivf_lengths"):
@@ -111,7 +111,7 @@ def test_decompress_2d_partial_final_block():
 
 def test_build_emb_cache_block_independent():
     host = host_arrays(14, 30, 12)
-    dev, spec = tlayout.to_device(**host)
+    dev, spec = tlayout.to_device(**host, device="cpu")
     full = tlayout.build_emb_cache(dev, spec).emb_cache
     for block in (8, 12):
         assert torch.equal(tlayout.build_emb_cache(dev, spec, block=block).emb_cache, full)
@@ -128,7 +128,7 @@ def test_length_buckets_raise_rather_than_fall_back():
     host["codes"] = host["codes"][: lens.sum()]
     host["residuals"] = host["residuals"][: lens.sum()]
     assert tlayout.plan_buckets(lens, 80) is not None
-    own, spec_t = tlayout.to_device(**host, length_buckets=4)
+    own, spec_t = tlayout.to_device(**host, length_buckets=4, device="cpu")
     dev_j, spec_j = jlayout.to_device(**host, length_buckets=4)
     assert spec_t.bucket_caps == spec_j.bucket_caps != ()
     assert spec_t.bucket_counts == spec_j.bucket_counts
@@ -138,5 +138,5 @@ def test_length_buckets_raise_rather_than_fall_back():
         assert np.array_equal(a.residuals.numpy(), np.asarray(b.residuals))
     for f in ("doc_bucket", "doc_bucket_row", "codes"):
         assert np.array_equal(getattr(own, f).numpy(), np.asarray(getattr(dev_j, f))), f
-    flat, spec0 = tlayout.to_device(**host, length_buckets=0)  # the single-cap layout
+    flat, spec0 = tlayout.to_device(**host, length_buckets=0, device="cpu")  # the single-cap layout
     assert not spec0.bucket_caps and flat.residuals is not None and not flat.buckets

@@ -96,7 +96,7 @@ def shared(corpus):
     docs, _ = corpus
     art = artifacts(docs)
     ivf, ivf_lengths = jivf.build_ivf(art["codes"], art["doc_lengths"], 64)
-    dev, ispec = tlayout.to_device(ivf=ivf, ivf_lengths=ivf_lengths, **art)
+    dev, ispec = tlayout.to_device(ivf=ivf, ivf_lengths=ivf_lengths, **art, device="cpu")
     return dict(
         art=art,
         js=jpar.build_sharded_index(mesh=jmesh(), **art),
