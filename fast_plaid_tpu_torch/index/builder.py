@@ -18,6 +18,7 @@ import torch
 from fast_plaid_tpu_torch.index import ivf as ivf_mod
 from fast_plaid_tpu_torch.index import storage
 from fast_plaid_tpu_torch.ops import codec
+from fast_plaid_tpu_torch.utils import tracing
 
 __all__ = ["create_index", "compress_documents", "train_codec_from_documents"]
 
@@ -144,21 +145,23 @@ def create_index(
     with open(os.path.join(index_path, "plan.json"), "w") as f:
         json.dump({"nbits": nbits, "num_chunks": n_chunks}, f, indent=4)
 
-    params = train_codec_from_documents(
-        documents, centroids, nbits, seed if seed is not None else 42, device
-    )
+    with tracing.span("create.build"):
+        params = train_codec_from_documents(
+            documents, centroids, nbits, seed if seed is not None else 42, device
+        )
 
-    np.save(
-        os.path.join(index_path, "centroids.npy"),
-        centroids.astype(np.float32, copy=False),
-    )
-    np.save(os.path.join(index_path, "bucket_cutoffs.npy"), params.bucket_cutoffs)
-    np.save(os.path.join(index_path, "bucket_weights.npy"), params.bucket_weights)
-    np.save(os.path.join(index_path, "avg_residual.npy"), params.avg_residual)
-    np.save(
-        os.path.join(index_path, "cluster_threshold.npy"),
-        np.float32(params.cluster_threshold),
-    )
+    with tracing.span("create.write"):
+        np.save(
+            os.path.join(index_path, "centroids.npy"),
+            centroids.astype(np.float32, copy=False),
+        )
+        np.save(os.path.join(index_path, "bucket_cutoffs.npy"), params.bucket_cutoffs)
+        np.save(os.path.join(index_path, "bucket_weights.npy"), params.bucket_weights)
+        np.save(os.path.join(index_path, "avg_residual.npy"), params.avg_residual)
+        np.save(
+            os.path.join(index_path, "cluster_threshold.npy"),
+            np.float32(params.cluster_threshold),
+        )
 
     all_codes: list[np.ndarray] = []
     all_doclens: list[int] = []
@@ -174,50 +177,55 @@ def create_index(
     for ci in iterator:
         chunk_docs = documents[ci * proc_chunk : (ci + 1) * proc_chunk]
         doclens = [int(d.shape[0]) for d in chunk_docs]
-        codes_np, packed_np = compress_documents(
-            chunk_docs, centroids, params.bucket_cutoffs, nbits, device=device
-        )
-        cpath, rpath, dpath, mpath = storage.chunk_paths(index_path, ci)
-        np.save(cpath, codes_np)
-        np.save(rpath, packed_np)
-        with open(dpath, "w") as f:
-            json.dump(doclens, f)
-        with open(mpath, "w") as f:
-            json.dump(
-                {
-                    "num_documents": len(doclens),
-                    "num_embeddings": int(codes_np.shape[0]),
-                    "embedding_offset": total_embeddings,
-                },
-                f,
-                indent=4,
+        with tracing.span("create.build"):
+            codes_np, packed_np = compress_documents(
+                chunk_docs, centroids, params.bucket_cutoffs, nbits, device=device
             )
+        with tracing.span("create.write"):
+            cpath, rpath, dpath, mpath = storage.chunk_paths(index_path, ci)
+            np.save(cpath, codes_np)
+            np.save(rpath, packed_np)
+            with open(dpath, "w") as f:
+                json.dump(doclens, f)
+            with open(mpath, "w") as f:
+                json.dump(
+                    {
+                        "num_documents": len(doclens),
+                        "num_embeddings": int(codes_np.shape[0]),
+                        "embedding_offset": total_embeddings,
+                    },
+                    f,
+                    indent=4,
+                )
         total_embeddings += int(codes_np.shape[0])
         all_codes.append(codes_np)
         all_doclens.extend(doclens)
 
     if not compress_only:
-        codes_flat = (
-            np.concatenate(all_codes) if all_codes else np.zeros((0,), np.int32)
-        )
-        ivf, ivf_lengths = ivf_mod.build_ivf(
-            codes_flat, np.asarray(all_doclens, dtype=np.int64), centroids.shape[0]
-        )
-        np.save(os.path.join(index_path, "ivf.npy"), ivf)
-        np.save(os.path.join(index_path, "ivf_lengths.npy"), ivf_lengths)
+        with tracing.span("create.build"):
+            codes_flat = (
+                np.concatenate(all_codes) if all_codes else np.zeros((0,), np.int32)
+            )
+            ivf, ivf_lengths = ivf_mod.build_ivf(
+                codes_flat, np.asarray(all_doclens, dtype=np.int64), centroids.shape[0]
+            )
+        with tracing.span("create.write"):
+            np.save(os.path.join(index_path, "ivf.npy"), ivf)
+            np.save(os.path.join(index_path, "ivf_lengths.npy"), ivf_lengths)
 
     avg_doclen = (sum(all_doclens) / n_docs) if n_docs else 0.0
-    storage.save_metadata(
-        index_path,
-        {
-            "num_chunks": n_chunks,
-            "nbits": nbits,
-            "num_partitions": int(centroids.shape[0]),
-            "num_embeddings": total_embeddings,
-            "avg_doclen": avg_doclen,
-            "num_documents": n_docs,
-            "compress_only": bool(compress_only),
-            "dim": dim,
-            "layout_version": storage.LAYOUT_VERSION,
-        },
-    )
+    with tracing.span("create.write"):
+        storage.save_metadata(
+            index_path,
+            {
+                "num_chunks": n_chunks,
+                "nbits": nbits,
+                "num_partitions": int(centroids.shape[0]),
+                "num_embeddings": total_embeddings,
+                "avg_doclen": avg_doclen,
+                "num_documents": n_docs,
+                "compress_only": bool(compress_only),
+                "dim": dim,
+                "layout_version": storage.LAYOUT_VERSION,
+            },
+        )

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from fast_plaid_tpu_torch.ops._build import build_root
+from fast_plaid_tpu_torch.utils import tracing
 from fast_plaid_tpu_torch.utils.locking import FileLock
 
 __all__ = ["AVAILABLE", "build_ivf_native", "gather_windows_u8"]
@@ -67,7 +68,9 @@ def _load() -> ctypes.CDLL | None:
     """Build (once per source and flags) and load the library; None where
     that fails, which is reported once."""
     global _lib, _failed, AVAILABLE
-    with _lock:
+    if _lib is not None or _failed:
+        return _lib
+    with tracing.span("kernels.load"), _lock:
         if _lib is not None or _failed:
             return _lib
         digest = hashlib.sha256(" ".join(_FLAGS).encode() + _SRC.read_bytes() + _host_cpu())
@@ -79,6 +82,7 @@ def _load() -> ctypes.CDLL | None:
                 with FileLock(str(out_dir / "build.lock")):
                     if not lib_path.exists():
                         _compile(lib_path)
+                        tracing.count("native.built", 1)
             lib = ctypes.CDLL(str(lib_path))
         except (OSError, subprocess.SubprocessError) as exc:
             print(f"fastplaid_native: build skipped ({exc})", file=sys.stderr)

@@ -20,6 +20,7 @@ import subprocess
 import threading
 from pathlib import Path
 
+from fast_plaid_tpu_torch.utils import tracing
 from fast_plaid_tpu_torch.utils.locking import FileLock
 
 __all__ = ["load_library", "build_info", "build_root", "count_launch"]
@@ -131,7 +132,9 @@ def build_info() -> dict:
 def load_library() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library; cached per process."""
     global _lib
-    with _lock:
+    if _lib is not None:
+        return _lib
+    with tracing.span("kernels.load"), _lock:
         if _lib is not None:
             return _lib
         sources = _sources()
@@ -147,6 +150,7 @@ def load_library() -> ctypes.CDLL:
             with FileLock(str(out_dir / "build.lock")):
                 if not lib_path.exists():
                     _compile(sources, out_dir, lib_path, log_path)
+                    tracing.count("kernels.built", 1)
         lib = ctypes.CDLL(str(lib_path))
         for name, (argtypes, restype) in _SIGNATURES.items():
             fn = getattr(lib, name)

@@ -73,6 +73,7 @@ from fast_plaid_tpu_torch.ops.rerank_kernel import (
     maxsim_gather_scores,
     maxsim_q4_gather_scores,
 )
+from fast_plaid_tpu_torch.utils import tracing
 
 __all__ = [
     "search_core",
@@ -239,6 +240,25 @@ def _slot_estimates(
     )
 
 
+def _count_live(name: str, pids: torch.Tensor, sent_pid: int) -> None:
+    """Counter ``name`` += the live (non-sentinel) slots of ``pids``, on the
+    device, while the recorder is on."""
+    if tracing.enabled():
+        tracing.count_device(name, pids != sent_pid)
+
+
+def _count_pool(p2: torch.Tensor, sent_pid: int) -> None:
+    """Counters of a tile's rerank pool while the recorder is on:
+    ``rerank.rows`` (B x R slots) and ``rerank.distinct_rows`` (its distinct
+    live pids, on the device): their ratio is what the dedup kernel saves."""
+    if tracing.enabled():
+        tracing.count("rerank.rows", p2.numel())
+        s = torch.sort(p2.reshape(-1)).values
+        head = torch.ones_like(s, dtype=torch.bool)
+        head[1:] = s[1:] != s[:-1]
+        tracing.count_device("rerank.distinct_rows", head & (s != sent_pid))
+
+
 def _probe_scores(dev: DeviceIndex, queries: torch.Tensor, k_real: int):
     """Stages 1-2's scores: ([B, Q, Kp] query-centroid scores, the same with
     padding cells and zero-padded query tokens at -inf). From 32k cells on
@@ -294,60 +314,62 @@ def candidates_impl(
     if approx_mode not in ("cells", "cells_full", "tokens"):
         msg = f"approx_mode must be 'cells', 'cells_full' or 'tokens'; got {approx_mode!r}"
         raise ValueError(msg)
-    queries = queries.to(torch.float32)
-    device = queries.device
-    b, q, _ = queries.shape
-    kp = dev.centroids.shape[0]
-    k_real = ispec.n_partitions
-    cell_cap = ispec.cell_cap
-    sent_pid = ispec.sentinel_pid
+    with tracing.span("engine.probe"):
+        queries = queries.to(torch.float32)
+        device = queries.device
+        b, q, _ = queries.shape
+        kp = dev.centroids.shape[0]
+        k_real = ispec.n_partitions
+        cell_cap = ispec.cell_cap
+        sent_pid = ispec.sentinel_pid
 
-    scores_qc, probe_scores = _probe_scores(dev, queries, k_real)
-    if subset is not None:
-        # Chunk of subset documents per scatter: the int64 index tensor
-        # (8 B a token), the gathered int32 codes and the mask (~24 B a
-        # token in all) stay within mem_budget.
-        chunk = max(8, min(subset.shape[1], mem_budget // (24 * b * ispec.doc_cap)))
-        allowed = _allowed_cells_mask(dev, subset, ispec, kp, chunk)
-        probe_scores = torch.where(allowed[:, None, :], probe_scores, NEG)
-    probe = min(n_ivf_probe, kp)
-    top_cell_scores, cells = _probe_topk(probe_scores.reshape(b * q, kp), probe)
-    top_cell_scores = top_cell_scores.reshape(b, q, probe)
-    cells = cells.to(torch.int32).reshape(b, q, probe)
-    cells = torch.where(top_cell_scores > NEG, cells, kp)  # kp = empty cell
-    # Pack each probed cell with its per-token probe rank and sort, so the
-    # best rank at which any query token probed a cell heads its run.
-    pp = 1 << max((probe - 1).bit_length(), 1)
-    if (kp + 1) * pp >= 2**31:
-        msg = (
-            f"n_partitions ({kp}) x probe-rank range ({pp}) overflows the "
-            "int32 cell/rank packing; reduce n_ivf_probe or the partition "
-            "count"
-        )
-        raise ValueError(msg)
-    rank = torch.arange(probe, dtype=torch.int32, device=device).expand(b, q, probe)
-    packed = torch.where(cells == kp, kp * pp, cells * pp + rank)
-    packed = torch.sort(packed.reshape(b, q * probe), dim=-1).values
-    best_rank = packed % pp  # valid at each run head
-    cells = _dedup_sorted(packed // pp, kp)
-    # [B, C, Q] per-cell/query-token score table from the probed centroids.
-    cent_sel = dev.centroids[torch.clamp(cells, 0, kp - 1).long()].to(torch.float32)
-    tbl = torch.bmm(cent_sel, queries.transpose(1, 2))  # [B, C, Q]
-    # Order the deduped cells by descending probe score so truncation
-    # drops the least promising cells first.
-    cell_pri = torch.where(cells == kp, NEG, torch.amax(tbl, dim=-1))
-    order = _argsort_desc(cell_pri)
-    cells = _take(cells, order)
-    tbl = _take(tbl, order)
-    best_rank = _take(best_rank, order)
+        scores_qc, probe_scores = _probe_scores(dev, queries, k_real)
+        if subset is not None:
+            # Chunk of subset documents per scatter: the int64 index tensor
+            # (8 B a token), the gathered int32 codes and the mask (~24 B a
+            # token in all) stay within mem_budget.
+            chunk = max(8, min(subset.shape[1], mem_budget // (24 * b * ispec.doc_cap)))
+            allowed = _allowed_cells_mask(dev, subset, ispec, kp, chunk)
+            probe_scores = torch.where(allowed[:, None, :], probe_scores, NEG)
+        probe = min(n_ivf_probe, kp)
+        top_cell_scores, cells = _probe_topk(probe_scores.reshape(b * q, kp), probe)
+        top_cell_scores = top_cell_scores.reshape(b, q, probe)
+        cells = cells.to(torch.int32).reshape(b, q, probe)
+        cells = torch.where(top_cell_scores > NEG, cells, kp)  # kp = empty cell
+    with tracing.span("engine.candidates"):
+        # Pack each probed cell with its per-token probe rank and sort, so the
+        # best rank at which any query token probed a cell heads its run.
+        pp = 1 << max((probe - 1).bit_length(), 1)
+        if (kp + 1) * pp >= 2**31:
+            msg = (
+                f"n_partitions ({kp}) x probe-rank range ({pp}) overflows the "
+                "int32 cell/rank packing; reduce n_ivf_probe or the partition "
+                "count"
+            )
+            raise ValueError(msg)
+        rank = torch.arange(probe, dtype=torch.int32, device=device).expand(b, q, probe)
+        packed = torch.where(cells == kp, kp * pp, cells * pp + rank)
+        packed = torch.sort(packed.reshape(b, q * probe), dim=-1).values
+        best_rank = packed % pp  # valid at each run head
+        cells = _dedup_sorted(packed // pp, kp)
+        # [B, C, Q] per-cell/query-token score table from the probed centroids.
+        cent_sel = dev.centroids[torch.clamp(cells, 0, kp - 1).long()].to(torch.float32)
+        tbl = torch.bmm(cent_sel, queries.transpose(1, 2))  # [B, C, Q]
+        # Order the deduped cells by descending probe score so truncation
+        # drops the least promising cells first.
+        cell_pri = torch.where(cells == kp, NEG, torch.amax(tbl, dim=-1))
+        order = _argsort_desc(cell_pri)
+        cells = _take(cells, order)
+        tbl = _take(tbl, order)
+        best_rank = _take(best_rank, order)
 
-    # ---- 3. candidates: probed cells' IVF lists.
-    c_cells = cells.shape[1]
-    offs = dev.ivf_offsets[cells.long()]
-    lens = dev.ivf_lengths[cells.long()]  # sentinel cells -> 0
-    total = torch.sum(lens, dim=-1, dtype=torch.int32)
-    if cand_cap is None:
-        cand_cap = c_cells * cell_cap
+        # ---- 3. candidates: probed cells' IVF lists.
+        c_cells = cells.shape[1]
+        offs = dev.ivf_offsets[cells.long()]
+        lens = dev.ivf_lengths[cells.long()]  # sentinel cells -> 0
+        total = torch.sum(lens, dim=-1, dtype=torch.int32)
+        if cand_cap is None:
+            cand_cap = c_cells * cell_cap
     if approx_mode == "tokens":
         return _token_candidates(
             dev, scores_qc, subset, offs, lens, total,
@@ -355,159 +377,168 @@ def candidates_impl(
             mem_budget=mem_budget, with_stats=with_stats,
         )
 
-    # [B, C] cell totals (zero-padded query rows contribute exactly 0).
-    cell_tot = torch.where(cells == kp, NEG, torch.sum(tbl, dim=-1))
-    order2 = _argsort_desc(cell_tot)
-    ct_s = _take(cell_tot, order2)
-    offs_s = _take(offs, order2)
-    lens_s = _take(lens, order2)
+    with tracing.span("engine.candidates"):
+        # [B, C] cell totals (zero-padded query rows contribute exactly 0).
+        cell_tot = torch.where(cells == kp, NEG, torch.sum(tbl, dim=-1))
+        order2 = _argsort_desc(cell_tot)
+        ct_s = _take(cell_tot, order2)
+        offs_s = _take(offs, order2)
+        lens_s = _take(lens, order2)
 
-    exhaustive = n_ivf_probe >= k_real or n_full_scores >= 2 * ispec.n_docs
-    if approx_mode == "cells_full":
-        # cells_full promises per-query-token estimates; the exhaustive
-        # branch scores at cell granularity, sound only when the rerank
-        # pool covers the corpus.
-        exhaustive = n_full_scores >= 2 * ispec.n_docs
-    k2 = min(cand_cap, ((n_full_scores + 127) // 128) * 128)
-    ivf2d = dev.ivf.reshape(-1, IVF_ALIGN)
-    n_ivf_rows = ivf2d.shape[0]
+        exhaustive = n_ivf_probe >= k_real or n_full_scores >= 2 * ispec.n_docs
+        if approx_mode == "cells_full":
+            # cells_full promises per-query-token estimates; the exhaustive
+            # branch scores at cell granularity, sound only when the rerank
+            # pool covers the corpus.
+            exhaustive = n_full_scores >= 2 * ispec.n_docs
+        k2 = min(cand_cap, ((n_full_scores + 127) // 128) * 128)
+        ivf2d = dev.ivf.reshape(-1, IVF_ALIGN)
+        n_ivf_rows = ivf2d.shape[0]
 
     if exhaustive:
         # Brute-force-identity contract: every probed cell is admitted (an
         # explicit cand_cap still caps, counted as overflow) and candidates
         # score at cell granularity.
-        budget = cand_cap
-        c_sel = c_cells
-        csum = torch.cumsum(lens_s, dim=-1, dtype=torch.int32)
-        cell_ok = (csum - lens_s) < budget
-        rows_pc = -(-cell_cap // IVF_ALIGN)
-        row_ids = (offs_s // IVF_ALIGN)[..., None] + torch.arange(
-            rows_pc, dtype=torch.int32, device=device
-        )
-        win = ivf2d[torch.clamp(row_ids, 0, n_ivf_rows - 1).long()].reshape(
-            b, c_sel, rows_pc * IVF_ALIGN
-        )[:, :, :cell_cap]
-        iota_cc = torch.arange(cell_cap, dtype=torch.int32, device=device)
-        valid = (iota_cc[None, None, :] < lens_s[..., None]) & cell_ok[..., None]
-        width = c_sel * cell_cap
+        with tracing.span("engine.candidates"):
+            budget = cand_cap
+            c_sel = c_cells
+            csum = torch.cumsum(lens_s, dim=-1, dtype=torch.int32)
+            cell_ok = (csum - lens_s) < budget
+            rows_pc = -(-cell_cap // IVF_ALIGN)
+            row_ids = (offs_s // IVF_ALIGN)[..., None] + torch.arange(
+                rows_pc, dtype=torch.int32, device=device
+            )
+            win = ivf2d[torch.clamp(row_ids, 0, n_ivf_rows - 1).long()].reshape(
+                b, c_sel, rows_pc * IVF_ALIGN
+            )[:, :, :cell_cap]
+            iota_cc = torch.arange(cell_cap, dtype=torch.int32, device=device)
+            valid = (iota_cc[None, None, :] < lens_s[..., None]) & cell_ok[..., None]
+            width = c_sel * cell_cap
+            pid = torch.where(valid, win, sent_pid).reshape(b, width)
+            if subset is not None:
+                pid = _subset_filter(pid, subset, sent_pid)
+            _count_live("candidates", pid, sent_pid)
+            vals = torch.where(valid, ct_s[..., None], NEG).reshape(b, width)
+
+        with tracing.span("engine.estimate"):
+            # Dedup multi-cell docs: sort by pid, keep each run's max score.
+            pid_s, idx = torch.sort(pid, dim=-1, stable=True)
+            val_s = torch.gather(vals, 1, idx)
+            step = 1
+            while step < width:
+                eq = pid_s[:, :-step] == pid_s[:, step:]
+                head = torch.maximum(
+                    val_s[:, :-step], torch.where(eq, val_s[:, step:], NEG)
+                )
+                val_s = torch.cat([head, val_s[:, -step:]], dim=1)
+                step *= 2
+            approx = torch.where(_run_heads(pid_s, sent_pid), val_s, NEG)
+        with tracing.span("engine.prune"):
+            r = min(max(n_full_scores // 2, 1), width)
+            s1, i1 = _top_k(approx, r)
+            p2 = torch.where(torch.isneginf(s1), sent_pid, torch.gather(pid_s, 1, i1))
+            if with_stats:
+                kept = torch.sum(torch.where(cell_ok, lens_s, 0), dim=-1)
+                over = torch.clamp(total - kept, min=0).to(torch.int32)
+                return p2, torch.stack([torch.zeros_like(over), over], dim=-1)
+            return p2
+
+    # ---- budgeted chunked-window branch ("cells_full" opens the budget
+    # to the full candidate capacity).
+    with tracing.span("engine.candidates"):
+        if approx_mode == "cells_full":
+            budget = cand_cap
+            c_sel = c_cells
+            order_b = _argsort_desc(cell_tot)
+        else:
+            budget = min(cand_cap, max(k2, slot_budget or 0))
+            if subset is not None:
+                # Density-scaled budget: only ~S / n_docs of an admitted cell's
+                # documents survive the membership filter, so scale the budget
+                # to admit as many subset documents as the unfiltered budget
+                # admits documents. (S is the padded subset width.)
+                density = max(1, ispec.n_docs // max(subset.shape[1], 1))
+                budget = min(cand_cap, budget * density)
+            typical = max(1, cand_cap // max(c_cells, 1))
+            c_sel = min(c_cells, max(8, -(-2 * budget // typical)))
+            # Giant-cell demotion: hub cells rank below every normal cell.
+            mean_len = torch.sum(dev.ivf_lengths) // max(k_real, 1)
+            giant_thresh = torch.clamp(8 * mean_len, min=budget // 4)
+            is_giant = (lens > giant_thresh) & torch.isfinite(cell_tot)
+            demoted = torch.where(is_giant, cell_tot - 1e10, cell_tot)
+            if rank_admit > 0:
+                # Rank-based admission tier: every query token's
+                # top-``rank_admit`` probed cells are admitted whole first.
+                tier0 = (best_rank < rank_admit) & (cells != kp) & ~is_giant
+                demoted = torch.where(
+                    tier0, 1e10 * (rank_admit - best_rank).to(torch.float32), demoted
+                )
+                c_sel = min(c_cells, max(c_sel, q * rank_admit + 8))
+            order_b = _argsort_desc(demoted)
+        offs_o = _take(offs, order_b)
+        lens_o = _take(lens, order_b)
+        csum_full = torch.cumsum(lens_o, dim=-1, dtype=torch.int32)
+        ok_full = (csum_full - lens_o) < budget  # whole cells until budget
+        offs_s, lens_s = offs_o[:, :c_sel], lens_o[:, :c_sel]
+        cell_ok = ok_full[:, :c_sel]
+
+        # Chunk table: the selected cells' lists as IVF_ALIGN-wide chunks laid
+        # end to end, each one row of the 2-D IVF view.
+        w = IVF_ALIGN
+        s_chunks = -(-budget // w) + c_sel + -(-cell_cap // w)
+        nck = torch.where(cell_ok, (lens_s + w - 1) // w, 0)  # [B, c_sel]
+        ck_end = torch.cumsum(nck, dim=-1, dtype=torch.int32)
+        ck_start = ck_end - nck
+        jj = torch.arange(s_chunks, dtype=torch.int32, device=device)
+        own = (jj[None, :, None] >= ck_start[:, None, :]) & (
+            jj[None, :, None] < ck_end[:, None, :]
+        )  # [B, S, c_sel]: exactly one owner while jj < total chunks
+        sel_ids = torch.arange(c_sel, dtype=torch.int32, device=device)
+        owner = torch.sum(torch.where(own, sel_ids[None, None, :], 0), dim=-1).to(
+            torch.int32
+        )  # [B, S]
+        has = torch.any(own, dim=-1)
+        local = jj[None, :] - _take(ck_start, owner)
+        off = _take(offs_s, owner) + local * w
+        rem = _take(lens_s, owner) - local * w
+        win = ivf2d[torch.clamp(off // w, 0, n_ivf_rows - 1).long()]  # [B, S, w]
+        iota_w = torch.arange(w, dtype=torch.int32, device=device)
+        valid = (iota_w[None, None, :] < rem[..., None]) & has[..., None]
+        width = s_chunks * w
         pid = torch.where(valid, win, sent_pid).reshape(b, width)
         if subset is not None:
             pid = _subset_filter(pid, subset, sent_pid)
-        vals = torch.where(valid, ct_s[..., None], NEG).reshape(b, width)
+        _count_live("candidates", pid, sent_pid)
+        ownw = owner[..., None].expand(b, s_chunks, w).reshape(b, width)
 
-        # Dedup multi-cell docs: sort by pid, keep each run's max score.
-        pid_s, idx = torch.sort(pid, dim=-1, stable=True)
-        val_s = torch.gather(vals, 1, idx)
-        step = 1
-        while step < width:
-            eq = pid_s[:, :-step] == pid_s[:, step:]
-            head = torch.maximum(
-                val_s[:, :-step], torch.where(eq, val_s[:, step:], NEG)
-            )
-            val_s = torch.cat([head, val_s[:, -step:]], dim=1)
-            step *= 2
-        approx = torch.where(_run_heads(pid_s, sent_pid), val_s, NEG)
-        r = min(max(n_full_scores // 2, 1), width)
+    with tracing.span("engine.estimate"):
+        # ---- 4. sort by pid carrying the owning cell; per-query-token
+        # estimates from the [B, c_sel, Q] table, max-combined within runs.
+        pid_s, own_s = _sort_pid_payload(pid, ownw, c_sel, sent_pid)
+        cell_scores = _take(tbl, order_b)[:, :c_sel].to(torch.bfloat16)
+        est = _slot_estimates(pid_s, own_s, cell_scores, use_kernel=use_estimate_kernel)
+        approx = torch.where(_run_heads(pid_s, sent_pid), est, NEG)
+
+    with tracing.span("engine.prune"):
+        # ---- 5. prune straight to the exact-rerank pool.
+        r = min(max(n_full_scores // pool_divisor, 1), width)
         s1, i1 = _top_k(approx, r)
         p2 = torch.where(torch.isneginf(s1), sent_pid, torch.gather(pid_s, 1, i1))
         if with_stats:
             kept = torch.sum(torch.where(cell_ok, lens_s, 0), dim=-1)
-            over = torch.clamp(total - kept, min=0).to(torch.int32)
-            return p2, torch.stack([torch.zeros_like(over), over], dim=-1)
+            if approx_mode == "cells_full":
+                over = torch.clamp(total - kept, min=0).to(torch.int32)
+                return p2, torch.stack([torch.zeros_like(over), over], dim=-1)
+            budget_free = max(k2, slot_budget or 0)  # pre-cand_cap intent
+            if subset is not None:
+                budget_free = budget_free * max(1, ispec.n_docs // max(subset.shape[1], 1))
+            ok_free = (csum_full - lens_o) < budget_free
+            target_free = torch.sum(torch.where(ok_free, lens_o, 0), dim=-1)
+            target_cap = torch.sum(torch.where(ok_full, lens_o, 0), dim=-1)
+            over = torch.clamp(target_free - target_cap, min=0).to(torch.int32)
+            pruned = torch.clamp(total - kept, min=0).to(torch.int32) - over
+            return p2, torch.stack([torch.clamp(pruned, min=0), over], dim=-1)
         return p2
-
-    # ---- budgeted chunked-window branch ("cells_full" opens the budget
-    # to the full candidate capacity).
-    if approx_mode == "cells_full":
-        budget = cand_cap
-        c_sel = c_cells
-        order_b = _argsort_desc(cell_tot)
-    else:
-        budget = min(cand_cap, max(k2, slot_budget or 0))
-        if subset is not None:
-            # Density-scaled budget: only ~S / n_docs of an admitted cell's
-            # documents survive the membership filter, so scale the budget
-            # to admit as many subset documents as the unfiltered budget
-            # admits documents. (S is the padded subset width.)
-            density = max(1, ispec.n_docs // max(subset.shape[1], 1))
-            budget = min(cand_cap, budget * density)
-        typical = max(1, cand_cap // max(c_cells, 1))
-        c_sel = min(c_cells, max(8, -(-2 * budget // typical)))
-        # Giant-cell demotion: hub cells rank below every normal cell.
-        mean_len = torch.sum(dev.ivf_lengths) // max(k_real, 1)
-        giant_thresh = torch.clamp(8 * mean_len, min=budget // 4)
-        is_giant = (lens > giant_thresh) & torch.isfinite(cell_tot)
-        demoted = torch.where(is_giant, cell_tot - 1e10, cell_tot)
-        if rank_admit > 0:
-            # Rank-based admission tier: every query token's
-            # top-``rank_admit`` probed cells are admitted whole first.
-            tier0 = (best_rank < rank_admit) & (cells != kp) & ~is_giant
-            demoted = torch.where(
-                tier0, 1e10 * (rank_admit - best_rank).to(torch.float32), demoted
-            )
-            c_sel = min(c_cells, max(c_sel, q * rank_admit + 8))
-        order_b = _argsort_desc(demoted)
-    offs_o = _take(offs, order_b)
-    lens_o = _take(lens, order_b)
-    csum_full = torch.cumsum(lens_o, dim=-1, dtype=torch.int32)
-    ok_full = (csum_full - lens_o) < budget  # whole cells until budget
-    offs_s, lens_s = offs_o[:, :c_sel], lens_o[:, :c_sel]
-    cell_ok = ok_full[:, :c_sel]
-
-    # Chunk table: the selected cells' lists as IVF_ALIGN-wide chunks laid
-    # end to end, each one row of the 2-D IVF view.
-    w = IVF_ALIGN
-    s_chunks = -(-budget // w) + c_sel + -(-cell_cap // w)
-    nck = torch.where(cell_ok, (lens_s + w - 1) // w, 0)  # [B, c_sel]
-    ck_end = torch.cumsum(nck, dim=-1, dtype=torch.int32)
-    ck_start = ck_end - nck
-    jj = torch.arange(s_chunks, dtype=torch.int32, device=device)
-    own = (jj[None, :, None] >= ck_start[:, None, :]) & (
-        jj[None, :, None] < ck_end[:, None, :]
-    )  # [B, S, c_sel]: exactly one owner while jj < total chunks
-    sel_ids = torch.arange(c_sel, dtype=torch.int32, device=device)
-    owner = torch.sum(torch.where(own, sel_ids[None, None, :], 0), dim=-1).to(
-        torch.int32
-    )  # [B, S]
-    has = torch.any(own, dim=-1)
-    local = jj[None, :] - _take(ck_start, owner)
-    off = _take(offs_s, owner) + local * w
-    rem = _take(lens_s, owner) - local * w
-    win = ivf2d[torch.clamp(off // w, 0, n_ivf_rows - 1).long()]  # [B, S, w]
-    iota_w = torch.arange(w, dtype=torch.int32, device=device)
-    valid = (iota_w[None, None, :] < rem[..., None]) & has[..., None]
-    width = s_chunks * w
-    pid = torch.where(valid, win, sent_pid).reshape(b, width)
-    if subset is not None:
-        pid = _subset_filter(pid, subset, sent_pid)
-    ownw = owner[..., None].expand(b, s_chunks, w).reshape(b, width)
-
-    # ---- 4. sort by pid carrying the owning cell; per-query-token
-    # estimates from the [B, c_sel, Q] table, max-combined within runs.
-    pid_s, own_s = _sort_pid_payload(pid, ownw, c_sel, sent_pid)
-    cell_scores = _take(tbl, order_b)[:, :c_sel].to(torch.bfloat16)
-    est = _slot_estimates(pid_s, own_s, cell_scores, use_kernel=use_estimate_kernel)
-    approx = torch.where(_run_heads(pid_s, sent_pid), est, NEG)
-
-    # ---- 5. prune straight to the exact-rerank pool.
-    r = min(max(n_full_scores // pool_divisor, 1), width)
-    s1, i1 = _top_k(approx, r)
-    p2 = torch.where(torch.isneginf(s1), sent_pid, torch.gather(pid_s, 1, i1))
-    if with_stats:
-        kept = torch.sum(torch.where(cell_ok, lens_s, 0), dim=-1)
-        if approx_mode == "cells_full":
-            over = torch.clamp(total - kept, min=0).to(torch.int32)
-            return p2, torch.stack([torch.zeros_like(over), over], dim=-1)
-        budget_free = max(k2, slot_budget or 0)  # pre-cand_cap intent
-        if subset is not None:
-            budget_free = budget_free * max(1, ispec.n_docs // max(subset.shape[1], 1))
-        ok_free = (csum_full - lens_o) < budget_free
-        target_free = torch.sum(torch.where(ok_free, lens_o, 0), dim=-1)
-        target_cap = torch.sum(torch.where(ok_full, lens_o, 0), dim=-1)
-        over = torch.clamp(target_free - target_cap, min=0).to(torch.int32)
-        pruned = torch.clamp(total - kept, min=0).to(torch.int32) - over
-        return p2, torch.stack([torch.clamp(pruned, min=0), over], dim=-1)
-    return p2
 
 
 def _token_candidates(
@@ -532,32 +563,36 @@ def _token_candidates(
     b = scores_qc.shape[0]
     sent_pid = ispec.sentinel_pid
     device = scores_qc.device
-    seg_end = torch.cumsum(lens, dim=-1)
-    jj = torch.arange(cand_cap, dtype=seg_end.dtype, device=device).expand(b, cand_cap)
-    # Slot j belongs to the first cell whose list ends past it.
-    owner = torch.clamp(
-        torch.searchsorted(seg_end.contiguous(), jj.contiguous(), right=True),
-        max=lens.shape[1] - 1,
-    )
-    base = _take(offs - (seg_end - lens), owner)
-    src = torch.clamp(base + jj, 0, dev.ivf.shape[0] - 1)
-    pid = torch.where(jj < total[:, None], dev.ivf[src.long()], sent_pid)
-    if subset is not None:
-        pid = _subset_filter(pid, subset, sent_pid)
-    pid_s = torch.sort(pid, dim=-1).values
-    # Unique candidates compacted to the front, sentinels behind.
-    cand = torch.sort(torch.where(_run_heads(pid_s, sent_pid), pid_s, sent_pid), dim=-1).values
-    approx = _token_estimates(dev, cand, scores_qc, ispec=ispec, mem_budget=mem_budget)
+    with tracing.span("engine.candidates"):
+        seg_end = torch.cumsum(lens, dim=-1)
+        jj = torch.arange(cand_cap, dtype=seg_end.dtype, device=device).expand(b, cand_cap)
+        # Slot j belongs to the first cell whose list ends past it.
+        owner = torch.clamp(
+            torch.searchsorted(seg_end.contiguous(), jj.contiguous(), right=True),
+            max=lens.shape[1] - 1,
+        )
+        base = _take(offs - (seg_end - lens), owner)
+        src = torch.clamp(base + jj, 0, dev.ivf.shape[0] - 1)
+        pid = torch.where(jj < total[:, None], dev.ivf[src.long()], sent_pid)
+        if subset is not None:
+            pid = _subset_filter(pid, subset, sent_pid)
+        _count_live("candidates", pid, sent_pid)
+        pid_s = torch.sort(pid, dim=-1).values
+        # Unique candidates compacted to the front, sentinels behind.
+        cand = torch.sort(torch.where(_run_heads(pid_s, sent_pid), pid_s, sent_pid), dim=-1).values
+    with tracing.span("engine.estimate"):
+        approx = _token_estimates(dev, cand, scores_qc, ispec=ispec, mem_budget=mem_budget)
 
-    # ---- 5. prune: top n_full_scores, then the pool (n_full_scores // 4).
-    k1 = min(n_full_scores, cand_cap)
-    s1, i1 = _top_k(approx, k1)
-    p1 = torch.where(torch.isneginf(s1), sent_pid, torch.gather(cand, 1, i1))
-    p2 = p1[:, : min(max(n_full_scores // 4, 1), k1)].contiguous()
-    if with_stats:
-        over = torch.clamp(total - cand_cap, min=0).to(torch.int32)
-        return p2, torch.stack([torch.zeros_like(over), over], dim=-1)
-    return p2
+    with tracing.span("engine.prune"):
+        # ---- 5. prune: top n_full_scores, then the pool (n_full_scores // 4).
+        k1 = min(n_full_scores, cand_cap)
+        s1, i1 = _top_k(approx, k1)
+        p1 = torch.where(torch.isneginf(s1), sent_pid, torch.gather(cand, 1, i1))
+        p2 = p1[:, : min(max(n_full_scores // 4, 1), k1)].contiguous()
+        if with_stats:
+            over = torch.clamp(total - cand_cap, min=0).to(torch.int32)
+            return p2, torch.stack([torch.zeros_like(over), over], dim=-1)
+        return p2
 
 
 def _token_estimates(
@@ -769,24 +804,26 @@ def rerank_rows(
     """Stage 6 over pre-gathered token rows: decompress + exact MaxSim,
     [B, R] float32 with -inf at sentinel slots. Chunked over R so that the
     decompressed [B, Rc, doc_cap, D] tile stays within ``mem_budget``."""
-    queries = queries.to(torch.float32)
-    b, r, doc_cap = codes_rows.shape
-    q, d = queries.shape[1], queries.shape[2]
-    per_row = b * doc_cap * max(d * 4, q * 4)
-    r_chunk = max(4, min(r, mem_budget // max(1, per_row)))
-    parts = []
-    for s in range(0, r, r_chunk):
-        emb = codec.decompress(
-            codes_rows[:, s : s + r_chunk],
-            res_rows[:, s : s + r_chunk],
-            centroids,
-            bucket_weights,
-            nbits,
-            out_dtype=torch.bfloat16,
-        )
-        sc, _ = _exact_scores(emb, queries, tok_valid[:, s : s + r_chunk])
-        parts.append(torch.where(pids[:, s : s + r_chunk] == sentinel_pid, NEG, sc))
-    return torch.cat(parts, dim=1)
+    with tracing.span("engine.rerank"):
+        _count_pool(pids, sentinel_pid)
+        queries = queries.to(torch.float32)
+        b, r, doc_cap = codes_rows.shape
+        q, d = queries.shape[1], queries.shape[2]
+        per_row = b * doc_cap * max(d * 4, q * 4)
+        r_chunk = max(4, min(r, mem_budget // max(1, per_row)))
+        parts = []
+        for s in range(0, r, r_chunk):
+            emb = codec.decompress(
+                codes_rows[:, s : s + r_chunk],
+                res_rows[:, s : s + r_chunk],
+                centroids,
+                bucket_weights,
+                nbits,
+                out_dtype=torch.bfloat16,
+            )
+            sc, _ = _exact_scores(emb, queries, tok_valid[:, s : s + r_chunk])
+            parts.append(torch.where(pids[:, s : s + r_chunk] == sentinel_pid, NEG, sc))
+        return torch.cat(parts, dim=1)
 
 
 def _q4_scores(dev: DeviceIndex, p2, queries, *, mem_budget: int, use_kernel: bool):
@@ -818,10 +855,11 @@ def q4_prefilter_core(
     device-resident q4 cache and the top ``pool`` go on to the host row
     gather and the codec-exact rerank.
     """
-    queries = queries.to(torch.float32)
-    pre = _q4_scores(dev, p2, queries, mem_budget=mem_budget, use_kernel=use_kernel)
-    s_m, i_m = _top_k(pre, min(pool, p2.shape[1]))
-    return torch.where(torch.isneginf(s_m), sentinel_pid, torch.gather(p2, 1, i_m))
+    with tracing.span("engine.q4_prefilter"):
+        queries = queries.to(torch.float32)
+        pre = _q4_scores(dev, p2, queries, mem_budget=mem_budget, use_kernel=use_kernel)
+        s_m, i_m = _top_k(pre, min(pool, p2.shape[1]))
+        return torch.where(torch.isneginf(s_m), sentinel_pid, torch.gather(p2, 1, i_m))
 
 
 def token_matrices(
@@ -846,12 +884,13 @@ def token_matrices(
 
 
 def _final_topk(exact: torch.Tensor, p2: torch.Tensor, top_k: int):
-    r = p2.shape[1]
-    kk = min(top_k, r)
-    fs, fi = _top_k(exact, kk)
-    fp = torch.gather(p2, 1, fi)
-    fp = torch.where(torch.isneginf(fs), -1, fp)
-    return _pad_to(fp, top_k, 1, -1), _pad_to(fs, top_k, 1, NEG)
+    with tracing.span("engine.topk"):
+        r = p2.shape[1]
+        kk = min(top_k, r)
+        fs, fi = _top_k(exact, kk)
+        fp = torch.gather(p2, 1, fi)
+        fp = torch.where(torch.isneginf(fs), -1, fp)
+        return _pad_to(fp, top_k, 1, -1), _pad_to(fs, top_k, 1, NEG)
 
 
 def search_impl(
@@ -897,9 +936,10 @@ def search_impl(
         # Direct-subset pool: skip stages 1-5 and exact-rerank every
         # subset document (sorted, duplicates and out-of-range ids as
         # sentinels).
-        sub_s = torch.sort(subset.to(torch.int32), dim=-1).values
-        sub_s = _dedup_sorted(sub_s, sent_pid)
-        p2 = torch.where((sub_s < 0) | (sub_s >= ispec.n_docs), sent_pid, sub_s)
+        with tracing.span("engine.candidates"):
+            sub_s = torch.sort(subset.to(torch.int32), dim=-1).values
+            sub_s = _dedup_sorted(sub_s, sent_pid)
+            p2 = torch.where((sub_s < 0) | (sub_s >= ispec.n_docs), sent_pid, sub_s)
         stats = (
             torch.zeros((queries.shape[0], 2), dtype=torch.int32, device=queries.device)
             if with_stats
@@ -941,52 +981,55 @@ def search_impl(
         and not exhaustive
         and q4_pool < r
     ):
-        pre = _q4_scores(
-            dev, p2, queries, mem_budget=mem_budget, use_kernel=use_rerank_kernel
-        )
-        s_m, i_m = _top_k(pre, q4_pool)
-        p2 = torch.where(torch.isneginf(s_m), sent_pid, torch.gather(p2, 1, i_m))
-        r = q4_pool
+        with tracing.span("engine.q4_prefilter"):
+            pre = _q4_scores(
+                dev, p2, queries, mem_budget=mem_budget, use_kernel=use_rerank_kernel
+            )
+            s_m, i_m = _top_k(pre, q4_pool)
+            p2 = torch.where(torch.isneginf(s_m), sent_pid, torch.gather(p2, 1, i_m))
+            r = q4_pool
 
-    if dev.buckets:
-        # Length-bucketed stage 6: one pass a bucket at its cap.
-        exact, qdrop = _rerank_bucketed(
-            dev, queries, p2, ispec=ispec, mem_budget=mem_budget,
-            use_kernel=use_rerank_kernel,
-        )
-        if with_stats:
-            stats[:, 1] += qdrop  # quota drops are static-buffer overflow
-    elif use_rerank_kernel and dev.emb_cache is not None:
-        # Fused gather + MaxSim: candidate rows stream into shared memory
-        # once and only [B, R] scores come back. Where the tile's pools
-        # overlap enough (small corpus against B * R), the dedup kernel
-        # reads each (document, requester group) row once instead.
-        exact = _cache_scores(dev.emb_cache, p2, dev.doc_lengths[p2.long()], queries)
-    else:
-        # Chunk over the rerank set with the gathers inside each chunk, so
-        # the [B, R, doc_cap, ...] token tensors never materialize in full.
-        per_row = b * doc_cap * max(d * 4, q * 4)
-        r_chunk = max(4, min(r, mem_budget // max(1, per_row)))
-        rn = _chunk_count(r, r_chunk)
-        p2_p = _pad_to(p2, rn * r_chunk, 1, sent_pid)
-        parts = []
-        for ci in range(rn):
-            pids = p2_p[:, ci * r_chunk : (ci + 1) * r_chunk]
-            valid = _doc_mask(dev, pids, doc_cap)
-            if dev.emb_cache is not None:
-                emb = dev.emb_cache[pids.long()]
-            else:
-                emb = codec.decompress(
-                    dev.codes[pids.long()],
-                    gather_res(dev.residuals, pids, doc_cap),
-                    dev.centroids,
-                    dev.bucket_weights,
-                    ispec.nbits,
-                    out_dtype=torch.bfloat16,
-                )  # [B, Rc, doc_cap, D] bf16
-            sc, _ = _exact_scores(emb, queries, valid)
-            parts.append(torch.where(pids == sent_pid, NEG, sc))
-        exact = torch.cat(parts, dim=1)[:, :r]
+    with tracing.span("engine.rerank"):
+        _count_pool(p2, sent_pid)
+        if dev.buckets:
+            # Length-bucketed stage 6: one pass a bucket at its cap.
+            exact, qdrop = _rerank_bucketed(
+                dev, queries, p2, ispec=ispec, mem_budget=mem_budget,
+                use_kernel=use_rerank_kernel,
+            )
+            if with_stats:
+                stats[:, 1] += qdrop  # quota drops are static-buffer overflow
+        elif use_rerank_kernel and dev.emb_cache is not None:
+            # Fused gather + MaxSim: candidate rows stream into shared memory
+            # once and only [B, R] scores come back. Where the tile's pools
+            # overlap enough (small corpus against B * R), the dedup kernel
+            # reads each (document, requester group) row once instead.
+            exact = _cache_scores(dev.emb_cache, p2, dev.doc_lengths[p2.long()], queries)
+        else:
+            # Chunk over the rerank set with the gathers inside each chunk, so
+            # the [B, R, doc_cap, ...] token tensors never materialize in full.
+            per_row = b * doc_cap * max(d * 4, q * 4)
+            r_chunk = max(4, min(r, mem_budget // max(1, per_row)))
+            rn = _chunk_count(r, r_chunk)
+            p2_p = _pad_to(p2, rn * r_chunk, 1, sent_pid)
+            parts = []
+            for ci in range(rn):
+                pids = p2_p[:, ci * r_chunk : (ci + 1) * r_chunk]
+                valid = _doc_mask(dev, pids, doc_cap)
+                if dev.emb_cache is not None:
+                    emb = dev.emb_cache[pids.long()]
+                else:
+                    emb = codec.decompress(
+                        dev.codes[pids.long()],
+                        gather_res(dev.residuals, pids, doc_cap),
+                        dev.centroids,
+                        dev.bucket_weights,
+                        ispec.nbits,
+                        out_dtype=torch.bfloat16,
+                    )  # [B, Rc, doc_cap, D] bf16
+                sc, _ = _exact_scores(emb, queries, valid)
+                parts.append(torch.where(pids == sent_pid, NEG, sc))
+            exact = torch.cat(parts, dim=1)[:, :r]
     fp, fs = _final_topk(exact, p2, top_k)
     if not want_tokens:
         return (fp, fs, stats) if with_stats else (fp, fs)

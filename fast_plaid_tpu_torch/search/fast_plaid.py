@@ -35,6 +35,7 @@ from fast_plaid_tpu_torch.search.searcher import (
     normalize_subset,
     search_on_device,
 )
+from fast_plaid_tpu_torch.utils import tracing
 from fast_plaid_tpu_torch.utils.devices import NO_CUDA
 from fast_plaid_tpu_torch.utils.locking import FileLock, Timeout
 
@@ -262,7 +263,7 @@ class FastPlaid:
         """Create and persist the index; k-means and compression run on the
         first device. ``metadata`` (one dict per document) goes into the
         SQLite store that ``filtering.where`` queries."""
-        with self._mutation_lock, self.lock:
+        with tracing.span("create"), self._mutation_lock, self.lock:
             docs = _format_embeddings(documents_embeddings)
             if not docs:
                 msg = "documents_embeddings must not be empty."
@@ -284,15 +285,16 @@ class FastPlaid:
                     os.path.join(self.index, "embeddings.npy"), docs
                 )
 
-            centroids = compute_kmeans(
-                documents_embeddings=docs,
-                dim=dim,
-                kmeans_niters=kmeans_niters,
-                max_points_per_centroid=max_points_per_centroid,
-                seed=seed,
-                n_samples_kmeans=n_samples_kmeans,
-                device=self.devices[0],
-            )
+            with tracing.span("create.kmeans"):
+                centroids = compute_kmeans(
+                    documents_embeddings=docs,
+                    dim=dim,
+                    kmeans_niters=kmeans_niters,
+                    max_points_per_centroid=max_points_per_centroid,
+                    seed=seed,
+                    n_samples_kmeans=n_samples_kmeans,
+                    device=self.devices[0],
+                )
             build_index(
                 self.index,
                 docs,
@@ -404,19 +406,20 @@ class FastPlaid:
     # ------------------------------------------------------------------
 
     def _prepare_search(self, queries_embeddings, subset):
-        indices = self._loaded_indices()
-        if not os.path.exists(os.path.join(self.index, "metadata.json")):
-            msg = (
-                f"Index metadata not found in '{self.index}'. "
-                "Please create the index before searching."
-            )
-            raise FileNotFoundError(msg)
-        for key, loaded in indices.items():
-            if loaded is None:
-                msg = f"Index could not be loaded on device '{key}'."
-                raise RuntimeError(msg)
-        queries = normalize_queries(queries_embeddings)
-        return indices, queries, normalize_subset(subset, len(queries))
+        with tracing.span("search.prepare"):
+            indices = self._loaded_indices()
+            if not os.path.exists(os.path.join(self.index, "metadata.json")):
+                msg = (
+                    f"Index metadata not found in '{self.index}'. "
+                    "Please create the index before searching."
+                )
+                raise FileNotFoundError(msg)
+            for key, loaded in indices.items():
+                if loaded is None:
+                    msg = f"Index could not be loaded on device '{key}'."
+                    raise RuntimeError(msg)
+            queries = normalize_queries(queries_embeddings)
+            return indices, queries, normalize_subset(subset, len(queries))
 
     def _dispatch_search(self, indices, queries, subsets, **kwargs) -> list:
         """Run on the first device, or split the query batch (and its
@@ -437,8 +440,9 @@ class FastPlaid:
         ]
         results: list = []
         with ThreadPoolExecutor(max_workers=n_dev) as pool:
+            run = tracing.bind(search_on_device)
             futures = [
-                pool.submit(search_on_device, ld, qs, subsets=ss, **kwargs)
+                pool.submit(run, ld, qs, subsets=ss, **kwargs)
                 for ld, qs, ss in chunks
                 if qs
             ]
@@ -467,21 +471,22 @@ class FastPlaid:
         query (ids from ``filtering.where``). With several devices the query
         batch is split across them.
         """
-        indices, queries, subsets = self._prepare_search(queries_embeddings, subset)
-        return self._dispatch_search(
-            indices,
-            queries,
-            subsets,
-            want_tokens=False,
-            top_k=top_k,
-            n_full_scores=n_full_scores,
-            n_ivf_probe=n_ivf_probe,
-            show_progress=show_progress,
-            approx_mode=approx_mode,
-            max_tile=batch_size,
-            pool_divisor=pool_divisor,
-            rank_admit=rank_admit,
-        )
+        with tracing.span("search"):
+            indices, queries, subsets = self._prepare_search(queries_embeddings, subset)
+            return self._dispatch_search(
+                indices,
+                queries,
+                subsets,
+                want_tokens=False,
+                top_k=top_k,
+                n_full_scores=n_full_scores,
+                n_ivf_probe=n_ivf_probe,
+                show_progress=show_progress,
+                approx_mode=approx_mode,
+                max_tile=batch_size,
+                pool_divisor=pool_divisor,
+                rank_admit=rank_admit,
+            )
 
     def search_token_scores(
         self,
@@ -499,21 +504,22 @@ class FastPlaid:
     ) -> list[list[tuple[int, float, np.ndarray]]]:
         """Like search() but each tuple carries a [q_tokens, doc_tokens]
         token-score matrix."""
-        indices, queries, subsets = self._prepare_search(queries_embeddings, subset)
-        return self._dispatch_search(
-            indices,
-            queries,
-            subsets,
-            want_tokens=True,
-            top_k=top_k,
-            n_full_scores=n_full_scores,
-            n_ivf_probe=n_ivf_probe,
-            show_progress=show_progress,
-            approx_mode=approx_mode,
-            max_tile=batch_size,
-            pool_divisor=pool_divisor,
-            rank_admit=rank_admit,
-        )
+        with tracing.span("search"):
+            indices, queries, subsets = self._prepare_search(queries_embeddings, subset)
+            return self._dispatch_search(
+                indices,
+                queries,
+                subsets,
+                want_tokens=True,
+                top_k=top_k,
+                n_full_scores=n_full_scores,
+                n_ivf_probe=n_ivf_probe,
+                show_progress=show_progress,
+                approx_mode=approx_mode,
+                max_tile=batch_size,
+                pool_divisor=pool_divisor,
+                rank_admit=rank_admit,
+            )
 
     # ------------------------------------------------------------------
     # reconstruction

@@ -37,6 +37,7 @@ from fast_plaid_tpu_torch.index.layout import (
 )
 from fast_plaid_tpu_torch.index.storage import load_index_data
 from fast_plaid_tpu_torch.ops.codec import packed_dim
+from fast_plaid_tpu_torch.utils import tracing
 
 __all__ = [
     "reload_index",
@@ -167,31 +168,33 @@ def _construct(
         else:
             layout_budget = emb_cache_budget
         length_buckets = choose_length_buckets(sizes, length_buckets, layout_budget)
-    dev, ispec = to_device(
-        centroids=data.centroids,
-        bucket_weights=data.bucket_weights,
-        codes=data.codes,
-        residuals=data.residuals,
-        doc_lengths=data.doc_lengths,
-        ivf=data.ivf,
-        ivf_lengths=data.ivf_lengths,
-        nbits=data.nbits,
-        device=device,
-        residuals_on_device=not low_memory,
-        length_buckets=0 if low_memory else length_buckets,
-    )
+    with tracing.span("open.device"):
+        dev, ispec = to_device(
+            centroids=data.centroids,
+            bucket_weights=data.bucket_weights,
+            codes=data.codes,
+            residuals=data.residuals,
+            doc_lengths=data.doc_lengths,
+            ivf=data.ivf,
+            ivf_lengths=data.ivf_lengths,
+            nbits=data.nbits,
+            device=device,
+            residuals_on_device=not low_memory,
+            length_buckets=0 if low_memory else length_buckets,
+        )
     budget = (
         default_emb_cache_budget(device)
         if emb_cache_budget is None
         else emb_cache_budget
     )
     if not low_memory:
-        if 0 < emb_cache_bytes(ispec) <= budget:
-            dev = build_emb_cache(dev, ispec)
-        elif ispec.dim % 2 == 0 and 0 < q4_cache_bytes(ispec) <= budget:
-            # The bf16 cache does not fit and the q4 tier does: prefilter
-            # from the 4x smaller copy, rescore the top slice via the codec.
-            dev = build_q4_cache(dev, ispec)
+        with tracing.span("open.cache"):
+            if 0 < emb_cache_bytes(ispec) <= budget:
+                dev = build_emb_cache(dev, ispec)
+            elif ispec.dim % 2 == 0 and 0 < q4_cache_bytes(ispec) <= budget:
+                # The bf16 cache does not fit and the q4 tier does: prefilter
+                # from the 4x smaller copy, rescore the top slice via the codec.
+                dev = build_q4_cache(dev, ispec)
     host_kwargs = {}
     if low_memory:
         doc_lengths = np.asarray(data.doc_lengths, np.int64)
@@ -212,7 +215,8 @@ def _construct(
         **host_kwargs,
     )
     if low_memory and ispec.dim % 2 == 0 and 0 < q4_cache_bytes(ispec) <= budget:
-        _build_q4_from_host(loaded)
+        with tracing.span("open.cache"):
+            _build_q4_from_host(loaded)
     return loaded
 
 
@@ -260,16 +264,18 @@ def reload_index(
 
     low_memory is ignored on the CPU, where host and device memory are one.
     """
-    data = load_index_data(index_path)
-    if data is None:
-        return {str(d): None for d in devices}
-    return {
-        str(d): _construct(
-            data,
-            d,
-            low_memory and d.type != "cpu",
-            emb_cache_budget=emb_cache_budget,
-            length_buckets=length_buckets,
-        )
-        for d in devices
-    }
+    with tracing.span("open"):
+        with tracing.span("open.host"):
+            data = load_index_data(index_path)
+        if data is None:
+            return {str(d): None for d in devices}
+        return {
+            str(d): _construct(
+                data,
+                d,
+                low_memory and d.type != "cpu",
+                emb_cache_budget=emb_cache_budget,
+                length_buckets=length_buckets,
+            )
+            for d in devices
+        }

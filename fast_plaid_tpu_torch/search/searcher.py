@@ -43,6 +43,7 @@ from fast_plaid_tpu_torch.search.engine import (
     token_matrices_core,
 )
 from fast_plaid_tpu_torch.search.load import LoadedIndex
+from fast_plaid_tpu_torch.utils import tracing
 
 __all__ = [
     "search_on_device",
@@ -300,9 +301,11 @@ def _lm_finish(
     device.
     """
     ispec = loaded.ispec
-    codes_rows, res_rows = (x.to(loaded.device, non_blocking=True) for x in rows[:2])
-    lens = loaded.dev.doc_lengths[p2.long()]
-    tok_valid = torch.arange(ispec.doc_cap, device=p2.device) < lens[..., None]
+    with tracing.span("search.upload"):
+        tracing.count("h2d.bytes", sum(x.numel() * x.element_size() for x in rows[:2]))
+        codes_rows, res_rows = (x.to(loaded.device, non_blocking=True) for x in rows[:2])
+        lens = loaded.dev.doc_lengths[p2.long()]
+        tok_valid = torch.arange(ispec.doc_cap, device=p2.device) < lens[..., None]
     exact = rerank_rows_core(
         codes_rows,
         res_rows,
@@ -352,6 +355,7 @@ def _to_host_async(x: torch.Tensor):
     """
     if x.device.type != "cuda":
         return x, None
+    tracing.count("d2h.bytes", x.numel() * x.element_size())
     host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
     host.copy_(x, non_blocking=True)
     ready = torch.cuda.Event()
@@ -384,125 +388,136 @@ def search_on_device(
     tile whose device work fails yields empty results for its queries, with
     a RuntimeWarning.
     """
-    ispec = loaded.ispec
-    if not ispec.has_ivf:
-        msg = (
-            "This index was created with compress_only=True and has no IVF; "
-            "search is unavailable (use get_embeddings)."
+    with tracing.span("search.plan"):
+        ispec = loaded.ispec
+        if not ispec.has_ivf:
+            msg = (
+                "This index was created with compress_only=True and has no IVF; "
+                "search is unavailable (use get_embeddings)."
+            )
+            raise ValueError(msg)
+        if not queries:
+            return []
+        bad_queries: set[int] = set()
+        cleaned: list[np.ndarray] = []
+        for qi, q in enumerate(queries):
+            a = np.asarray(q, dtype=np.float32)
+            if a.ndim != 2 or a.shape[-1] != ispec.dim or not np.isfinite(a).all():
+                bad_queries.add(qi)
+                cleaned.append(np.zeros((0, ispec.dim), np.float32))
+            else:
+                cleaned.append(a)
+        if len(bad_queries) == len(queries):
+            shapes = sorted({tuple(np.asarray(q).shape) for q in queries})
+            msg = (
+                f"All queries are invalid: expected [tokens, {ispec.dim}] "
+                f"finite embeddings matching the index dimension; got shapes "
+                f"{shapes[:4]}."
+            )
+            raise ValueError(msg)
+        if bad_queries:
+            preview = sorted(bad_queries)[:8]
+            warnings.warn(
+                f"{len(bad_queries)} quer{'y' if len(bad_queries) == 1 else 'ies'} "
+                f"(indices {preview}{'...' if len(bad_queries) > 8 else ''}) had "
+                f"non-finite values or a shape other than [tokens, {ispec.dim}]; "
+                "returning empty results for them",
+                RuntimeWarning,
+                stacklevel=2,
+            )
+        batch, q_lens = _pad_queries(cleaned, ispec.dim)
+        nq, q_cap, _ = batch.shape
+        cand_cap = None
+        slot_budget = None
+        if loaded.ivf_lengths_host is not None:
+            n_cells = min(q_cap * n_ivf_probe, ispec.n_partitions)
+            cand_cap = candidate_capacity(
+                loaded.ivf_lengths_host, n_cells, n_full_scores
+            )
+            slot_budget = suggest_slot_budget(loaded.ivf_lengths_host, n_full_scores)
+        approx_mode, rank_admit, slot_budget = resolve_approx_mode(
+            approx_mode,
+            loaded.ivf_lengths_host,
+            q_cap=q_cap,
+            n_ivf_probe=n_ivf_probe,
+            n_full_scores=n_full_scores,
+            n_partitions=ispec.n_partitions,
+            cand_cap=cand_cap,
+            rank_admit=rank_admit,
+            slot_budget=slot_budget,
+            n_docs=ispec.n_docs,
         )
-        raise ValueError(msg)
-    if not queries:
-        return []
-    bad_queries: set[int] = set()
-    cleaned: list[np.ndarray] = []
-    for qi, q in enumerate(queries):
-        a = np.asarray(q, dtype=np.float32)
-        if a.ndim != 2 or a.shape[-1] != ispec.dim or not np.isfinite(a).all():
-            bad_queries.add(qi)
-            cleaned.append(np.zeros((0, ispec.dim), np.float32))
-        else:
-            cleaned.append(a)
-    if len(bad_queries) == len(queries):
-        shapes = sorted({tuple(np.asarray(q).shape) for q in queries})
-        msg = (
-            f"All queries are invalid: expected [tokens, {ispec.dim}] "
-            f"finite embeddings matching the index dimension; got shapes "
-            f"{shapes[:4]}."
+        b_tile = _tile_size(ispec, q_cap, mem_budget, nq)
+        if cand_cap is not None:
+            b_tile = min(
+                b_tile,
+                suggest_query_tile(ispec, q_cap, cand_cap, slot_budget=slot_budget),
+            )
+        if max_tile is not None:
+            b_tile = min(b_tile, max(1, int(max_tile)))  # user memory hint
+        exhaustive = n_ivf_probe >= ispec.n_partitions or (
+            n_full_scores >= 2 * ispec.n_docs
         )
-        raise ValueError(msg)
-    if bad_queries:
-        preview = sorted(bad_queries)[:8]
-        warnings.warn(
-            f"{len(bad_queries)} quer{'y' if len(bad_queries) == 1 else 'ies'} "
-            f"(indices {preview}{'...' if len(bad_queries) > 8 else ''}) had "
-            f"non-finite values or a shape other than [tokens, {ispec.dim}]; "
-            "returning empty results for them",
-            RuntimeWarning,
-            stacklevel=2,
+        if pool_divisor is None:
+            pool_divisor = int(os.environ.get("FASTPLAID_POOL_DIV", "2"))
+        pool_divisor = max(1, int(pool_divisor))
+        # With the q4 cache resident, only the top rescue_pool rows a query
+        # cross host->device for the codec-exact rescore.
+        lm_q4 = (
+            loaded.low_memory
+            and loaded.dev.emb_q4 is not None
+            and not exhaustive
+            and rescue_pool(top_k) < max(n_full_scores // pool_divisor, 1)
         )
-    batch, q_lens = _pad_queries(cleaned, ispec.dim)
-    nq, q_cap, _ = batch.shape
-    cand_cap = None
-    slot_budget = None
-    if loaded.ivf_lengths_host is not None:
-        n_cells = min(q_cap * n_ivf_probe, ispec.n_partitions)
-        cand_cap = candidate_capacity(
-            loaded.ivf_lengths_host, n_cells, n_full_scores
-        )
-        slot_budget = suggest_slot_budget(loaded.ivf_lengths_host, n_full_scores)
-    approx_mode, rank_admit, slot_budget = resolve_approx_mode(
-        approx_mode,
-        loaded.ivf_lengths_host,
-        q_cap=q_cap,
-        n_ivf_probe=n_ivf_probe,
-        n_full_scores=n_full_scores,
-        n_partitions=ispec.n_partitions,
-        cand_cap=cand_cap,
-        rank_admit=rank_admit,
-        slot_budget=slot_budget,
-        n_docs=ispec.n_docs,
-    )
-    b_tile = _tile_size(ispec, q_cap, mem_budget, nq)
-    if cand_cap is not None:
-        b_tile = min(
-            b_tile,
-            suggest_query_tile(ispec, q_cap, cand_cap, slot_budget=slot_budget),
-        )
-    if max_tile is not None:
-        b_tile = min(b_tile, max(1, int(max_tile)))  # user memory hint
-    exhaustive = n_ivf_probe >= ispec.n_partitions or (
-        n_full_scores >= 2 * ispec.n_docs
-    )
-    if pool_divisor is None:
-        pool_divisor = int(os.environ.get("FASTPLAID_POOL_DIV", "2"))
-    pool_divisor = max(1, int(pool_divisor))
-    # With the q4 cache resident, only the top rescue_pool rows a query
-    # cross host->device for the codec-exact rescore.
-    lm_q4 = (
-        loaded.low_memory
-        and loaded.dev.emb_q4 is not None
-        and not exhaustive
-        and rescue_pool(top_k) < max(n_full_scores // pool_divisor, 1)
-    )
-    if loaded.low_memory:
-        # Bound the streamed rerank rows (codes int32 + residuals uint8 +
-        # valid flag per token) by the memory budget; the pipeline keeps two
-        # tiles in flight, so each gets half.
-        r_pool = (
-            rescue_pool(top_k) if lm_q4 else max(n_full_scores // pool_divisor, 1)
-        )
-        pd = loaded.host_residuals.shape[1]
-        per_q = r_pool * ispec.doc_cap * (pd + 5)
-        b_tile = min(b_tile, max(1, (mem_budget // 2) // max(per_q, 1)))
-    b_tile = max(1, min(b_tile, nq))
+        if loaded.low_memory:
+            # Bound the streamed rerank rows (codes int32 + residuals uint8 +
+            # valid flag per token) by the memory budget; the pipeline keeps two
+            # tiles in flight, so each gets half.
+            r_pool = (
+                rescue_pool(top_k) if lm_q4 else max(n_full_scores // pool_divisor, 1)
+            )
+            pd = loaded.host_residuals.shape[1]
+            per_q = r_pool * ispec.doc_cap * (pd + 5)
+            b_tile = min(b_tile, max(1, (mem_budget // 2) // max(per_q, 1)))
+        b_tile = max(1, min(b_tile, nq))
 
-    results: list = []
-    pruned_total = 0
-    overflow_total = 0
-    iterator = range(0, nq, b_tile)
-    if show_progress and nq > b_tile:
-        try:
-            from tqdm import tqdm  # type: ignore[import-not-found]
+        results: list = []
+        pruned_total = 0
+        overflow_total = 0
+        iterator = range(0, nq, b_tile)
+        if show_progress and nq > b_tile:
+            try:
+                from tqdm import tqdm  # type: ignore[import-not-found]
 
-            iterator = tqdm(iterator, desc="Searching")
-        except ImportError:
-            pass
+                iterator = tqdm(iterator, desc="Searching")
+            except ImportError:
+                pass
 
-    on_gpu = loaded.device.type == "cuda"
-    # Queries cross host->device at half width on a GPU (unit-norm values
-    # lose ~5e-4 relative in float16; the engine upcasts on arrival), and
-    # stay float32 on the CPU.
-    wire_dtype = np.float16 if on_gpu else np.float32
-    est_kernel, use_kernel = kernel_flags(loaded.dev)
+        on_gpu = loaded.device.type == "cuda"
+        # Queries cross host->device at half width on a GPU (unit-norm values
+        # lose ~5e-4 relative in float16; the engine upcasts on arrival), and
+        # stay float32 on the CPU.
+        wire_dtype = np.float16 if on_gpu else np.float32
+        est_kernel, use_kernel = kernel_flags(loaded.dev)
+        n_tiles = -(-nq // b_tile)
+        tracing.count("search.queries", nq)
+        tracing.count("search.tiles", n_tiles)
+        tracing.count("search.query_slots", n_tiles * b_tile)
 
     def make_tile(start: int):
+        with tracing.span("search.upload"):
+            return upload_tile(start)
+
+    def upload_tile(start: int):
         end = min(start + b_tile, nq)
         tile = batch[start:end]
         if end - start < b_tile:  # pad the tile to the static size
             tile = np.concatenate(
                 [tile, np.zeros((b_tile - (end - start), q_cap, ispec.dim), np.float32)]
             )
-        tile_dev = torch.from_numpy(tile.astype(wire_dtype)).to(loaded.device)
+        tile_host = torch.from_numpy(tile.astype(wire_dtype))
+        tracing.count("h2d.bytes", tile_host.numel() * tile_host.element_size())
+        tile_dev = tile_host.to(loaded.device)
         sub_dev = None
         if subsets is not None:
             sub = _pad_subsets(subsets, ispec.n_docs, slice(start, end))
@@ -511,18 +526,26 @@ def search_on_device(
                     (b_tile - sub.shape[0], sub.shape[1]), ispec.n_docs, np.int32
                 )
                 sub = np.concatenate([sub, pad])
+            tracing.count("h2d.bytes", sub.nbytes)
             sub_dev = torch.from_numpy(sub).to(loaded.device)
         return end, tile_dev, sub_dev
 
     def emit(out, start: int, end: int) -> None:
+        with tracing.span("search.emit"):
+            emit_results(out, start, end)
+
+    def emit_results(out, start: int, end: int) -> None:
         nonlocal pruned_total, overflow_total
         try:
             if isinstance(out, Exception):
                 raise out
+            with tracing.span("search.emit.wait"):
+                host = [t.cpu().numpy() for t in out]
+            tracing.count("d2h.bytes", sum(a.nbytes for a in host))
             if want_tokens:
-                pids, scores, tok, doc_lens, stats = (t.cpu().numpy() for t in out)
+                pids, scores, tok, doc_lens, stats = host
             else:
-                pids, scores, stats = (t.cpu().numpy() for t in out)
+                pids, scores, stats = host
         except RuntimeError as exc:  # device-side failure: contain to this tile
             warnings.warn(
                 f"search failed for queries [{start}, {end}) — returning "
@@ -559,17 +582,24 @@ def search_on_device(
                 )
 
     def gather_stage(p2_host, ready):
-        if ready is not None:
-            ready.synchronize()  # this tile's pool alone, not the whole stream
-        return host_gather_rows(loaded, p2_host.numpy(), pin=on_gpu)
+        with tracing.span("search.host_gather"):
+            if ready is not None:
+                with tracing.span("search.host_gather.pool_wait"):
+                    ready.synchronize()  # this tile's pool alone, not the whole stream
+            rows = host_gather_rows(loaded, p2_host.numpy(), pin=on_gpu)
+            tracing.count("gather.rows", p2_host.numel())
+            tracing.count("gather.bytes", sum(x.numel() * x.element_size() for x in rows[:2]))
+            return rows
 
     def finish_stage(start: int, end: int, job) -> None:
         try:
             if isinstance(job, Exception):
                 raise job
             tile_dev, p2, stats, fut = job
+            with tracing.span("search.gather_wait"):
+                rows = fut.result()
             out = _lm_finish(
-                loaded, tile_dev, p2, stats, fut.result(), top_k=top_k,
+                loaded, tile_dev, p2, stats, rows, top_k=top_k,
                 mem_budget=mem_budget, want_tokens=want_tokens,
             )
         except RuntimeError as exc:  # gather/rerank failure: emit contains it
@@ -611,7 +641,7 @@ def search_on_device(
                                 mem_budget=mem_budget,
                                 use_kernel=use_kernel,
                             )
-                        fut = pool.submit(gather_stage, *_to_host_async(p2))
+                        fut = pool.submit(tracing.bind(gather_stage), *_to_host_async(p2))
                         job = (tile_dev, p2, stats, fut)
                     except NotImplementedError:
                         raise

@@ -1,7 +1,6 @@
-"""Utilities: cross-process locking, resource profiling, profiler tracing,
-memory summaries."""
+"""Utilities: cross-process locking, the span and counter recorder
+(``tracing``), memory summaries."""
 
 from fast_plaid_tpu_torch.utils.locking import FileLock  # noqa: F401
-from fast_plaid_tpu_torch.utils.profile import profile_resources  # noqa: F401
 
-__all__ = ["FileLock", "profile_resources"]
+__all__ = ["FileLock"]

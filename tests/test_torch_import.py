@@ -18,7 +18,7 @@ for name in ("ops.q4cache", "ops.rerank_dedup", "ops.rerank_kernel", "search.loa
              "filtering", "filtering.filtering", "index.appender", "index.deleter",
              "search.update", "evaluation.evaluation", "evaluation.synthetic",
              "serving.batcher", "serving.server", "serving.__main__", "utils.tracing",
-             "utils.memory", "utils.profile", "parallel", "parallel.mesh", "parallel.sharded",
+             "utils.memory", "parallel", "parallel.mesh", "parallel.sharded",
              "parallel.mesh2d", "parallel.lm_sharded", "parallel.api", "native", "models",
              "models.encoder", "models.torch_encoder", "utils.devices"):
     assert "fast_plaid_tpu_torch." + name in names, name

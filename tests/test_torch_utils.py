@@ -1,5 +1,5 @@
 """The port's profiling helpers on the CPU: ``trace`` / ``annotate``
-(torch.profiler), ``profile_resources`` and the memory printers."""
+(torch.profiler) and the memory printers."""
 
 from __future__ import annotations
 
@@ -9,7 +9,6 @@ import os
 import numpy as np
 import torch
 
-from fast_plaid_tpu_torch.utils import profile_resources
 from fast_plaid_tpu_torch.utils.memory import device_memory_summary, print_array_memory
 from fast_plaid_tpu_torch.utils.tracing import annotate, trace
 
@@ -40,17 +39,6 @@ def test_annotate_nests_inside_a_trace(tmp_path):
     assert outer["ts"] <= inner["ts"] and inner["ts"] + inner["dur"] <= outer["ts"] + outer["dur"]
     with annotate("outside_any_trace"):  # harmless without a profiler
         pass
-
-
-def test_profile_resources_returns_and_prints(capsys):
-    @profile_resources
-    def work(n):
-        return torch.arange(n).sum().item()
-
-    assert work(100) == 4950
-    assert work.__name__ == "work"
-    out = capsys.readouterr().out
-    assert out.startswith("[profile] work:") and "RSS" in out and "device" in out
 
 
 def test_memory_printers(capsys):
