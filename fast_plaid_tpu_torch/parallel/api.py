@@ -88,7 +88,7 @@ class ShardedFastPlaid:
         ``searcher.last_search_stats()``.
         """
         queries = normalize_queries(queries_embeddings)
-        if not queries:
+        if len(queries) == 0:
             return []
         subsets = normalize_subset(subset, len(queries))
         sub_arr = (

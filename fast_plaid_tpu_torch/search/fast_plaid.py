@@ -444,7 +444,7 @@ class FastPlaid:
             futures = [
                 pool.submit(run, ld, qs, subsets=ss, **kwargs)
                 for ld, qs, ss in chunks
-                if qs
+                if len(qs)
             ]
             for fut in futures:
                 results.extend(fut.result())

@@ -74,6 +74,9 @@ class LoadedIndex:
         self.host_residuals = host_residuals  # [T, PD] uint8
         self.host_doc_offsets = host_doc_offsets  # [n_docs] int64
         self.host_doc_lengths = host_doc_lengths  # [n_docs] int32
+        # Resolved search plans (searcher.plan_search), one per q_cap and
+        # parameter set: this index never changes, so neither do they.
+        self.plans: dict = {}
 
 
 def default_emb_cache_budget(device: torch.device, reserve: int = 0) -> int:

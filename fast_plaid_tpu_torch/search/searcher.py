@@ -23,6 +23,7 @@ import threading
 import warnings
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -98,8 +99,14 @@ def kernel_flags(dev: DeviceIndex) -> tuple[bool, bool]:
     return on_gpu, rerank
 
 
-def normalize_queries(queries_embeddings) -> list[np.ndarray]:
-    """Accept [B, Q, D] array, [Q, D] array, or list of [Q_i, D] arrays."""
+def normalize_queries(queries_embeddings) -> np.ndarray | list[np.ndarray]:
+    """Accept [B, Q, D] array, [Q, D] array, or list of [Q_i, D] arrays.
+
+    A batch of one shape stays whole, as one float32 [B, Q, D] array (a list
+    whose items share one shape is stacked); anything else is a list of
+    float32 arrays, one a query. Either way ``len`` is the number of queries
+    and item ``i`` is query ``i``.
+    """
     if isinstance(queries_embeddings, (list, tuple)):
         out = []
         for q in queries_embeddings:
@@ -107,10 +114,14 @@ def normalize_queries(queries_embeddings) -> list[np.ndarray]:
             if arr.ndim == 3:
                 arr = arr[0]
             out.append(arr)
+        if out and all(a.ndim == 2 and a.shape == out[0].shape for a in out):
+            return np.stack(out)
         return out
     arr = np.asarray(queries_embeddings, dtype=np.float32)
     if arr.ndim == 2:
         arr = arr[None]
+    if arr.ndim == 3:
+        return arr
     return [arr[i] for i in range(arr.shape[0])]
 
 
@@ -162,11 +173,162 @@ def _pad_queries(
     return batch, lens
 
 
-def _tile_size(ispec, q_cap: int, mem_budget: int, n_queries: int) -> int:
+def _dense_batch(queries, dim: int) -> tuple[np.ndarray, list[int]] | None:
+    """(padded batch, lengths) of a dense batch, else None.
+
+    A float32 [B, Q, dim] array whose values are all finite is checked with
+    one reduction and padded to the token cap with one slice assignment (not
+    at all when Q is the cap already). Anything else (a list, another shape,
+    a non-finite value) takes the per-query route, with its warnings.
+    """
+    if not (
+        isinstance(queries, np.ndarray)
+        and queries.dtype == np.float32
+        and queries.ndim == 3
+        and queries.shape[-1] == dim
+        and np.isfinite(queries).all()
+    ):
+        return None
+    nq, q_len, _ = queries.shape
+    q_cap = round_up(max(q_len, 1), 8)
+    batch = queries
+    if q_len != q_cap:
+        batch = np.zeros((nq, q_cap, dim), dtype=np.float32)
+        batch[:, :q_len] = queries
+    tracing.count("search.stage.dense", nq)
+    return batch, [q_len] * nq
+
+
+def _stage_tile(queries: np.ndarray, rows: int, device: torch.device, half: bool) -> torch.Tensor:
+    """The float32 ``queries`` [n, Q, D], zero-padded to ``rows``, on ``device``.
+
+    On a GPU the float32 bytes go through a pinned buffer of torch's caching
+    host allocator (which holds the block until the copy has read it) and
+    cross without blocking the host. With ``half`` they are rounded to
+    float16 where they land: round to nearest even, bit for bit the host's
+    ``astype(np.float16)``.
+    """
+    host = torch.empty(
+        (rows, *queries.shape[1:]), dtype=torch.float32, pin_memory=device.type == "cuda"
+    )
+    buf = host.numpy()
+    buf[: len(queries)] = queries
+    buf[len(queries) :] = 0
+    tracing.count("h2d.bytes", host.numel() * host.element_size())
+    out = host.to(device, non_blocking=True)
+    return out.half() if half else out
+
+
+def _tile_size(ispec, q_cap: int, mem_budget: int) -> int:
     """Queries per device tile, sized so the [B, Q, Kp] score tensor fits."""
     kp = round_up(max(ispec.n_partitions, 1), 128)
     by_scores = max(1, mem_budget // max(1, q_cap * kp * 4 * 2))
-    return int(max(1, min(256, by_scores, n_queries)))
+    return int(max(1, min(256, by_scores)))
+
+
+class SearchPlan(NamedTuple):
+    """What a search resolves from the index and its parameters alone.
+
+    ``tile`` is the query tile before it is cut to the call's query count.
+    """
+
+    cand_cap: int | None
+    slot_budget: int | None
+    approx_mode: str
+    rank_admit: int
+    tile: int
+    lm_q4: bool
+
+
+# Entries kept a LoadedIndex: distinct (q_cap, parameters) pairs are few.
+_PLANS_MAX = 64
+
+
+def _resolve_plan(
+    loaded: LoadedIndex,
+    q_cap: int,
+    *,
+    top_k: int,
+    n_full_scores: int,
+    n_ivf_probe: int,
+    mem_budget: int,
+    approx_mode: str,
+    max_tile: int | None,
+    pool_divisor: int,
+    rank_admit: int | None,
+) -> SearchPlan:
+    """The engine's policies over the index's IVF lengths, as every call ran
+    them: candidate capacity, slot budget, estimator, tile size."""
+    ispec = loaded.ispec
+    cand_cap = None
+    slot_budget = None
+    if loaded.ivf_lengths_host is not None:
+        n_cells = min(q_cap * n_ivf_probe, ispec.n_partitions)
+        cand_cap = candidate_capacity(loaded.ivf_lengths_host, n_cells, n_full_scores)
+        slot_budget = suggest_slot_budget(loaded.ivf_lengths_host, n_full_scores)
+    approx_mode, rank_admit, slot_budget = resolve_approx_mode(
+        approx_mode,
+        loaded.ivf_lengths_host,
+        q_cap=q_cap,
+        n_ivf_probe=n_ivf_probe,
+        n_full_scores=n_full_scores,
+        n_partitions=ispec.n_partitions,
+        cand_cap=cand_cap,
+        rank_admit=rank_admit,
+        slot_budget=slot_budget,
+        n_docs=ispec.n_docs,
+    )
+    b_tile = _tile_size(ispec, q_cap, mem_budget)
+    if cand_cap is not None:
+        b_tile = min(
+            b_tile,
+            suggest_query_tile(ispec, q_cap, cand_cap, slot_budget=slot_budget),
+        )
+    if max_tile is not None:
+        b_tile = min(b_tile, max(1, int(max_tile)))  # user memory hint
+    exhaustive = n_ivf_probe >= ispec.n_partitions or (
+        n_full_scores >= 2 * ispec.n_docs
+    )
+    # With the q4 cache resident, only the top rescue_pool rows a query
+    # cross host->device for the codec-exact rescore.
+    lm_q4 = (
+        loaded.low_memory
+        and loaded.dev.emb_q4 is not None
+        and not exhaustive
+        and rescue_pool(top_k) < max(n_full_scores // pool_divisor, 1)
+    )
+    if loaded.low_memory:
+        # Bound the streamed rerank rows (codes int32 + residuals uint8 +
+        # valid flag per token) by the memory budget; the pipeline keeps two
+        # tiles in flight, so each gets half.
+        r_pool = (
+            rescue_pool(top_k) if lm_q4 else max(n_full_scores // pool_divisor, 1)
+        )
+        pd = loaded.host_residuals.shape[1]
+        per_q = r_pool * ispec.doc_cap * (pd + 5)
+        b_tile = min(b_tile, max(1, (mem_budget // 2) // max(per_q, 1)))
+    return SearchPlan(cand_cap, slot_budget, approx_mode, rank_admit, b_tile, lm_q4)
+
+
+def plan_search(loaded: LoadedIndex, q_cap: int, **params) -> SearchPlan:
+    """``_resolve_plan``, memoised on ``loaded`` under every input it reads.
+
+    The index is fixed for the life of a LoadedIndex (``update`` and
+    ``delete`` load a new one). Each entry is one finished tuple stored by
+    one assignment: threads racing on a key may both compute it, and none
+    reads a part of one.
+    """
+    key = (q_cap, *sorted(params.items()))
+    plan = loaded.plans.get(key)
+    if plan is not None:
+        tracing.count("search.plan.hit", 1)
+        return plan
+    tracing.count("search.plan.miss", 1)
+    plan = _resolve_plan(loaded, q_cap, **params)
+    if len(loaded.plans) >= _PLANS_MAX:
+        loaded.plans.clear()
+    loaded.plans[key] = plan
+    return plan
 
 
 def _gather_windows(
@@ -365,7 +527,7 @@ def _to_host_async(x: torch.Tensor):
 
 def search_on_device(
     loaded: LoadedIndex,
-    queries: list[np.ndarray],
+    queries: np.ndarray | list[np.ndarray],
     *,
     top_k: int,
     n_full_scores: int,
@@ -379,9 +541,12 @@ def search_on_device(
     pool_divisor: int | None = None,
     rank_admit: int | None = None,
 ) -> list:
-    """Run the cascade for a list of queries on one device.
+    """Run the cascade for a batch of queries on one device.
 
-    Returns, per query, a list of (pid, score) tuples, or (pid, score,
+    ``queries`` is what ``normalize_queries`` gives: one float32 [B, Q, D]
+    array, staged whole when every value is finite, or a list of [Q_i, D]
+    arrays, checked one by one. The plan (``plan_search``) is resolved once
+    per index and parameters. Returns, per query, a list of (pid, score) tuples, or (pid, score,
     token_matrix [q_tokens, doc_tokens]) with ``want_tokens``. ``subsets``
     (one id list per query, see ``normalize_subset``) restricts each query
     to its ids. A malformed or non-finite query yields an empty result; a
@@ -396,90 +561,60 @@ def search_on_device(
                 "search is unavailable (use get_embeddings)."
             )
             raise ValueError(msg)
-        if not queries:
+        if len(queries) == 0:
             return []
         bad_queries: set[int] = set()
-        cleaned: list[np.ndarray] = []
-        for qi, q in enumerate(queries):
-            a = np.asarray(q, dtype=np.float32)
-            if a.ndim != 2 or a.shape[-1] != ispec.dim or not np.isfinite(a).all():
-                bad_queries.add(qi)
-                cleaned.append(np.zeros((0, ispec.dim), np.float32))
-            else:
-                cleaned.append(a)
-        if len(bad_queries) == len(queries):
-            shapes = sorted({tuple(np.asarray(q).shape) for q in queries})
-            msg = (
-                f"All queries are invalid: expected [tokens, {ispec.dim}] "
-                f"finite embeddings matching the index dimension; got shapes "
-                f"{shapes[:4]}."
-            )
-            raise ValueError(msg)
-        if bad_queries:
-            preview = sorted(bad_queries)[:8]
-            warnings.warn(
-                f"{len(bad_queries)} quer{'y' if len(bad_queries) == 1 else 'ies'} "
-                f"(indices {preview}{'...' if len(bad_queries) > 8 else ''}) had "
-                f"non-finite values or a shape other than [tokens, {ispec.dim}]; "
-                "returning empty results for them",
-                RuntimeWarning,
-                stacklevel=2,
-            )
-        batch, q_lens = _pad_queries(cleaned, ispec.dim)
+        dense = _dense_batch(queries, ispec.dim)
+        if dense is not None:
+            batch, q_lens = dense
+        else:
+            cleaned: list[np.ndarray] = []
+            for qi, q in enumerate(queries):
+                a = np.asarray(q, dtype=np.float32)
+                if a.ndim != 2 or a.shape[-1] != ispec.dim or not np.isfinite(a).all():
+                    bad_queries.add(qi)
+                    cleaned.append(np.zeros((0, ispec.dim), np.float32))
+                else:
+                    cleaned.append(a)
+            if len(bad_queries) == len(queries):
+                shapes = sorted({tuple(np.asarray(q).shape) for q in queries})
+                msg = (
+                    f"All queries are invalid: expected [tokens, {ispec.dim}] "
+                    f"finite embeddings matching the index dimension; got shapes "
+                    f"{shapes[:4]}."
+                )
+                raise ValueError(msg)
+            if bad_queries:
+                preview = sorted(bad_queries)[:8]
+                warnings.warn(
+                    f"{len(bad_queries)} quer{'y' if len(bad_queries) == 1 else 'ies'} "
+                    f"(indices {preview}{'...' if len(bad_queries) > 8 else ''}) had "
+                    f"non-finite values or a shape other than [tokens, {ispec.dim}]; "
+                    "returning empty results for them",
+                    RuntimeWarning,
+                    stacklevel=2,
+                )
+            batch, q_lens = _pad_queries(cleaned, ispec.dim)
         nq, q_cap, _ = batch.shape
-        cand_cap = None
-        slot_budget = None
-        if loaded.ivf_lengths_host is not None:
-            n_cells = min(q_cap * n_ivf_probe, ispec.n_partitions)
-            cand_cap = candidate_capacity(
-                loaded.ivf_lengths_host, n_cells, n_full_scores
-            )
-            slot_budget = suggest_slot_budget(loaded.ivf_lengths_host, n_full_scores)
-        approx_mode, rank_admit, slot_budget = resolve_approx_mode(
-            approx_mode,
-            loaded.ivf_lengths_host,
-            q_cap=q_cap,
-            n_ivf_probe=n_ivf_probe,
-            n_full_scores=n_full_scores,
-            n_partitions=ispec.n_partitions,
-            cand_cap=cand_cap,
-            rank_admit=rank_admit,
-            slot_budget=slot_budget,
-            n_docs=ispec.n_docs,
-        )
-        b_tile = _tile_size(ispec, q_cap, mem_budget, nq)
-        if cand_cap is not None:
-            b_tile = min(
-                b_tile,
-                suggest_query_tile(ispec, q_cap, cand_cap, slot_budget=slot_budget),
-            )
-        if max_tile is not None:
-            b_tile = min(b_tile, max(1, int(max_tile)))  # user memory hint
-        exhaustive = n_ivf_probe >= ispec.n_partitions or (
-            n_full_scores >= 2 * ispec.n_docs
-        )
         if pool_divisor is None:
             pool_divisor = int(os.environ.get("FASTPLAID_POOL_DIV", "2"))
         pool_divisor = max(1, int(pool_divisor))
-        # With the q4 cache resident, only the top rescue_pool rows a query
-        # cross host->device for the codec-exact rescore.
-        lm_q4 = (
-            loaded.low_memory
-            and loaded.dev.emb_q4 is not None
-            and not exhaustive
-            and rescue_pool(top_k) < max(n_full_scores // pool_divisor, 1)
+        plan = plan_search(
+            loaded,
+            q_cap,
+            top_k=top_k,
+            n_full_scores=n_full_scores,
+            n_ivf_probe=n_ivf_probe,
+            mem_budget=mem_budget,
+            approx_mode=approx_mode,
+            max_tile=max_tile,
+            pool_divisor=pool_divisor,
+            rank_admit=rank_admit,
         )
-        if loaded.low_memory:
-            # Bound the streamed rerank rows (codes int32 + residuals uint8 +
-            # valid flag per token) by the memory budget; the pipeline keeps two
-            # tiles in flight, so each gets half.
-            r_pool = (
-                rescue_pool(top_k) if lm_q4 else max(n_full_scores // pool_divisor, 1)
-            )
-            pd = loaded.host_residuals.shape[1]
-            per_q = r_pool * ispec.doc_cap * (pd + 5)
-            b_tile = min(b_tile, max(1, (mem_budget // 2) // max(per_q, 1)))
-        b_tile = max(1, min(b_tile, nq))
+        cand_cap, slot_budget = plan.cand_cap, plan.slot_budget
+        approx_mode, rank_admit = plan.approx_mode, plan.rank_admit
+        lm_q4 = plan.lm_q4
+        b_tile = max(1, min(plan.tile, nq))
 
         results: list = []
         pruned_total = 0
@@ -494,10 +629,6 @@ def search_on_device(
                 pass
 
         on_gpu = loaded.device.type == "cuda"
-        # Queries cross host->device at half width on a GPU (unit-norm values
-        # lose ~5e-4 relative in float16; the engine upcasts on arrival), and
-        # stay float32 on the CPU.
-        wire_dtype = np.float16 if on_gpu else np.float32
         est_kernel, use_kernel = kernel_flags(loaded.dev)
         n_tiles = -(-nq // b_tile)
         tracing.count("search.queries", nq)
@@ -510,14 +641,10 @@ def search_on_device(
 
     def upload_tile(start: int):
         end = min(start + b_tile, nq)
-        tile = batch[start:end]
-        if end - start < b_tile:  # pad the tile to the static size
-            tile = np.concatenate(
-                [tile, np.zeros((b_tile - (end - start), q_cap, ispec.dim), np.float32)]
-            )
-        tile_host = torch.from_numpy(tile.astype(wire_dtype))
-        tracing.count("h2d.bytes", tile_host.numel() * tile_host.element_size())
-        tile_dev = tile_host.to(loaded.device)
+        # The tile is padded to the static size. Queries reach the engine at
+        # half width on a GPU (unit-norm values lose ~5e-4 relative in
+        # float16; the engine upcasts them), and stay float32 on the CPU.
+        tile_dev = _stage_tile(batch[start:end], b_tile, loaded.device, half=on_gpu)
         sub_dev = None
         if subsets is not None:
             sub = _pad_subsets(subsets, ispec.n_docs, slice(start, end))

@@ -622,3 +622,36 @@ def test_native_gather_into_pinned_out(cuda):
         want = searcher._gather_windows(src, starts, lens, 160, False, use_native=False)
         assert torch.equal(out, want)
         assert torch.equal(out.to(cuda, non_blocking=True).cpu(), want)
+
+
+def test_staged_query_tile_rounds_like_numpy_on_the_card(cuda):
+    """The search head's query tile crosses as float32 through pinned memory
+    and is rounded to float16 on the card: bit for bit numpy's host cast, at
+    random values, ties between float16 neighbours, overflow and subnormals,
+    with three tiles in flight at once."""
+    import numpy as np
+
+    from fast_plaid_tpu_torch.search import searcher
+
+    rng = np.random.default_rng(4)
+    h = np.arange(0, 0x7BFF, dtype=np.uint16).view(np.float16)  # every finite float16 >= 0
+    lo, hi = h.astype(np.float32), np.nextafter(h, np.float16(np.inf)).astype(np.float32)
+    ties = lo + (hi - lo) / 2
+    near = np.concatenate([np.nextafter(ties, np.float32(0)), np.nextafter(ties, np.float32(np.inf))])
+    big = np.array([65504, 65519, 65519.996, 65520, 65536, 1e6, 3.0e38], np.float32)
+    sub = np.arange(-3000, 3000, dtype=np.float32) * np.float32(2.0**-26)
+    rand = rng.standard_normal(300_000).astype(np.float32) * np.float32(4.0)
+    flat = np.concatenate([rand, ties, near, big, sub])
+    flat = np.concatenate([flat, -flat])
+    n = -(-flat.size // (32 * 128))
+    x = np.resize(flat, (n, 32, 128)).astype(np.float32)
+    with np.errstate(over="ignore"):
+        want = x.astype(np.float16).view(np.uint16)
+    thirds = np.array_split(np.arange(n), 3)
+    tiles = [searcher._stage_tile(x[i], len(i) + 5, cuda, half=True) for i in thirds]
+    torch.cuda.synchronize()
+    for i, got in zip(thirds, tiles):
+        assert got.device.type == "cuda" and got.dtype == torch.float16
+        got = got.cpu().numpy()
+        np.testing.assert_array_equal(got[: len(i)].view(np.uint16), want[i])
+        assert not got[len(i):].any()
