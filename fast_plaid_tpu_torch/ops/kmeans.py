@@ -8,7 +8,8 @@ centroids come from numpy ``default_rng(seed)`` exactly as in the JAX
 package, so both packages start from the same centroids. The empty-cluster
 re-seed draws from a ``torch.Generator`` and so picks other points than
 ``jax.random`` does. Centroid sums use ``index_add_`` (the JAX package's
-one-hot matmul is a TPU workaround for slow scatters).
+one-hot matmul is a TPU workaround for slow scatters). The host counter
+``kmeans.points`` counts the points Lloyd's trains on.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import numpy as np
 import torch
 
 from fast_plaid_tpu_torch.ops.codec import bf16_matmul
+from fast_plaid_tpu_torch.utils import tracing
 
 __all__ = ["train_kmeans", "num_partitions_heuristic", "sample_size_heuristic"]
 
@@ -112,6 +114,7 @@ def train_kmeans(
         t = (t // chunk) * chunk
         data = data[:t]
 
+    tracing.count("kmeans.points", t)
     init_idx = np.sort(rng.permutation(t)[:k])
     data_t = (
         data.contiguous()

@@ -21,6 +21,9 @@ The scores are those of ``maxsim_gather_scores`` up to the order of float32
 sums (bf16 inputs, float32 accumulation, length-masked token max, sum over
 query tokens). ``dedup_viable`` is the JAX package's static gate, unchanged,
 so both packages pick the same stage-6 kernel at every shape.
+
+Both paths mark the grouping with the span ``rerank.group`` and add its live
+entries to the device counter ``rerank.entries`` (``utils/tracing.py``).
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ import os
 import torch
 
 from fast_plaid_tpu_torch.ops.rerank_kernel import _MAX_Q, _query_chunks
+from fast_plaid_tpu_torch.utils import tracing
 
 __all__ = [
     "dedup_viable",
@@ -175,7 +179,9 @@ def maxsim_gather_scores_dedup_plain(
     nq = queries.shape[1]
     n = b * r
     e_cap = min(n, n // g + np_rows)
-    entry_pid, entry_len, entry_qidx, inv, n_entries = group_pool(pids, lens, g, e_cap)
+    with tracing.span("rerank.group"):
+        entry_pid, entry_len, entry_qidx, inv, n_entries = group_pool(pids, lens, g, e_cap)
+    tracing.count_device("rerank.entries", n_entries)
     live = int(n_entries)
     q2 = queries.to(torch.bfloat16).to(torch.float32).reshape(b * nq, d)
     ent = torch.full((e_cap, g), NEG, dtype=torch.float32, device=pids.device)
@@ -253,9 +259,11 @@ def maxsim_gather_scores_dedup(
         raise ValueError(msg)
     n = b * r
     e_cap = min(n, n // g + np_rows)
-    order, _, _, _, bounds, n_entries = _sort_pool(pids, g, e_cap)
-    order = order.to(torch.int32)
-    bounds = bounds.to(torch.int32)
+    with tracing.span("rerank.group"):
+        order, _, _, _, bounds, n_entries = _sort_pool(pids, g, e_cap)
+        order = order.to(torch.int32)
+        bounds = bounds.to(torch.int32)
+    tracing.count_device("rerank.entries", n_entries)
     flat_pid = pids.reshape(n).contiguous()
     flat_len = lens.reshape(n).contiguous()
     q3 = queries.to(torch.bfloat16).contiguous()

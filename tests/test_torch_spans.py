@@ -15,6 +15,8 @@ import pytest
 import torch
 
 from fast_plaid_tpu_torch.index.storage import load_index_data
+from fast_plaid_tpu_torch.ops import rerank_dedup
+from fast_plaid_tpu_torch.ops.kmeans import train_kmeans
 from fast_plaid_tpu_torch.search import FastPlaid, load
 from fast_plaid_tpu_torch.utils import tracing
 
@@ -174,6 +176,33 @@ def test_device_counter_adds_without_reading(index_dir):
     got = tracing.drain()["counters"]
     assert got == {"ones": 12, "host": 9}
     assert tracing.drain()["counters"] == {}
+
+
+def test_dedup_grouping_span_and_entries():
+    """The dedup wrapper's plain path marks its grouping ``rerank.group`` and
+    adds its live entries, one a (document, group of at most g requesters),
+    to ``rerank.entries``."""
+    emb = torch.randn(4, 16, 128).to(torch.bfloat16)
+    pids = torch.tensor([[0, 0, 0, 1], [0, 2, 2, 2]], dtype=torch.int32)
+    lens = torch.full_like(pids, 16)
+    queries = torch.randn(2, 16, 128)
+    tracing.enable()
+    rerank_dedup.maxsim_gather_scores_dedup(emb, pids, lens, queries, g=2)
+    got = tracing.drain()
+    assert [s["name"] for s in got["spans"]] == ["rerank.group"]
+    assert got["counters"] == {"rerank.entries": 5}  # pid 0: 2 entries, pid 1: 1, pid 2: 2
+
+
+@pytest.mark.parametrize(("t", "k", "chunk", "points"), [
+    (900, 8, 16384, 900),  # under k * 256: every point
+    (3000, 4, 16384, 1024),  # over: subsampled to k * 256
+    (3000, 8, 1000, 2000),  # over, then trimmed to whole chunks
+])
+def test_kmeans_counts_the_points_it_trains_on(t, k, chunk, points):
+    data = np.random.default_rng(0).standard_normal((t, DIM)).astype(np.float32)
+    tracing.enable()
+    train_kmeans(data, k, niters=1, chunk=chunk)
+    assert tracing.drain()["counters"] == {"kmeans.points": points}
 
 
 def test_bound_work_joins_the_call():
