@@ -1801,7 +1801,7 @@ def phase_sharded_disk(dev, counters, index_dir, queries, probe_q, probe_ids) ->
     if out["lm_native_calls"]["gather_windows_u8"] < 1:
         raise AssertionError("load_sharded_lm: the native host gather did not run")
     # Each shard's last tile's pids, gathered on a thread a shard at once.
-    with Recorder(searcher, "host_gather_rows") as rec:
+    with Recorder(searcher, "_pack_rows") as rec:
         lm.search(list(qs[:256]), mem_budget=lm_budget, **kw)
     jobs = list({id(a[0]): (a[0], a[1]) for a in rec.calls}.values())
     out["gather"] = gather_rows_both(jobs, reps=3)
@@ -1943,7 +1943,7 @@ def phase_low_memory(dev, index_dir, queries, n_queries, probe_pids, counters, r
         host = p2.cpu().numpy()
         last_pids[:] = [host]
         t0 = time.perf_counter()
-        rows = searcher.host_gather_rows(loaded, host, pin=True)
+        rows = searcher._pack_rows(loaded, host, pin=True)
         gather_ms.append((time.perf_counter() - t0) * 1e3)
         return searcher._lm_finish(loaded, tile, p2, stats, rows, top_k=TOP_K,
                                    mem_budget=fp.mem_budget)
@@ -2210,7 +2210,7 @@ def phase_mutable(dev, index_dir, docs, queries, n_queries, probe_pids, counters
             p2 = engine.q4_prefilter_core(
                 lm_l.dev, p2, tile, sentinel_pid=lm_l.ispec.sentinel_pid,
                 pool=engine.rescue_pool(TOP_K), mem_budget=fp_lm.mem_budget, use_kernel=k)
-            rows_h = searcher.host_gather_rows(lm_l, p2.cpu().numpy(), pin=True)
+            rows_h = searcher._pack_rows(lm_l, p2.cpu().numpy(), pin=True)
             return searcher._lm_finish(lm_l, tile, p2, stats, rows_h, top_k=TOP_K,
                                        mem_budget=fp_lm.mem_budget)[:2]
 
@@ -2504,7 +2504,7 @@ def phase_long_docs(dev, counters, seed: int, n_docs: int = 4096) -> dict:
                 lm.dev, p2, tile, sentinel_pid=lm.ispec.sentinel_pid,
                 pool=engine.rescue_pool(TOP_K), mem_budget=fp.mem_budget, use_kernel=k)
             last_pids[:] = [p2.cpu().numpy()]
-            rows = searcher.host_gather_rows(lm, last_pids[0], pin=True)
+            rows = searcher._pack_rows(lm, last_pids[0], pin=True)
             return searcher._lm_finish(lm, tile, p2, stats, rows, top_k=TOP_K,
                                        mem_budget=fp.mem_budget)[:2]
 
@@ -3117,7 +3117,7 @@ def phase_encoder(dev, counters, seed: int) -> dict:
                 loaded.dev, p2, tile, sentinel_pid=loaded.ispec.sentinel_pid,
                 pool=engine.rescue_pool(TOP_K), mem_budget=fp.mem_budget, use_kernel=k)
             last_pids[:] = [p2.cpu().numpy()]
-            rows = searcher.host_gather_rows(loaded, last_pids[0], pin=True)
+            rows = searcher._pack_rows(loaded, last_pids[0], pin=True)
             return searcher._lm_finish(loaded, tile, p2, stats, rows, top_k=TOP_K,
                                        mem_budget=fp.mem_budget)[:2]
 

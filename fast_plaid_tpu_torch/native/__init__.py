@@ -12,7 +12,8 @@ takes its numpy / torch path.
 
 Unlike the JAX package's, ``gather_windows_u8`` can write into a
 preallocated CPU tensor, so the low_memory path gathers straight into its
-pinned buffer. Each entry point counts its native calls in ``.calls``.
+pinned buffer, and can pack the windows back to back (``out_rows``). Each
+entry point counts its native calls in ``.calls``.
 """
 
 from __future__ import annotations
@@ -92,6 +93,10 @@ def _load() -> ctypes.CDLL | None:
         lib.fp_build_ivf.argtypes = [_P, _I64, _P, _I64, _I64, _P, _P]
         lib.fp_gather_windows_u8.restype = None
         lib.fp_gather_windows_u8.argtypes = [_P, _I64, _I64, _P, _P, _I64, _I64, _P]
+        lib.fp_gather_windows_packed_u8.restype = None
+        lib.fp_gather_windows_packed_u8.argtypes = [
+            _P, _I64, _I64, _P, _P, _P, _I64, _I64, _P,
+        ]
         _lib = lib
         AVAILABLE = True
         return lib
@@ -143,15 +148,24 @@ def gather_windows_u8(
     lengths: np.ndarray,
     doc_cap: int,
     out: torch.Tensor | None = None,
+    out_rows: np.ndarray | None = None,
 ):
-    """Threaded jagged window gather: src [T, row_bytes] -> [W, doc_cap, row_bytes].
+    """Threaded jagged window gather from ``src`` [T, row_bytes].
 
     Window w is rows [indices[w], indices[w] + lengths[w]) of ``src`` (any
     dtype, viewed as bytes a row), the start clamped to [0, T), the length
-    to [0, doc_cap] and to the end of ``src``; rows past it are zero. Into
-    ``out`` when given (a contiguous CPU tensor of W * doc_cap * row_bytes
-    bytes, of any shape and dtype), which is returned; else into a new uint8
-    array. None when the native library is unavailable.
+    to [0, doc_cap] and to the end of ``src``; rows past it are zero.
+
+    Without ``out_rows`` the windows are padded: [W, doc_cap, row_bytes],
+    zero past each window's rows. With ``out_rows`` ([W] int64) they are
+    packed: window w's rows (its clamped length, zeros past the end of
+    ``src`` included) go to rows [out_rows[w], out_rows[w] + length) of the
+    output, byte for byte the first rows of its padded window, and no other
+    row is written. Into ``out`` when given (a contiguous CPU tensor, of any
+    shape and dtype, of exactly W * doc_cap rows padded, of at least every
+    window's last row packed), which is returned; else into a new uint8
+    array ([rows, row_bytes] packed, zero where no window writes). None when
+    the native library is unavailable.
     """
     lib = _load()
     if lib is None:
@@ -165,24 +179,46 @@ def gather_windows_u8(
     if lengths.shape[0] != w:
         msg = f"{w} window starts but {lengths.shape[0]} lengths"
         raise ValueError(msg)
-    nbytes = w * int(doc_cap) * row_bytes
+    if out_rows is None:
+        n_rows = w * int(doc_cap)
+    else:
+        out_rows = np.ascontiguousarray(out_rows, dtype=np.int64).reshape(-1)
+        if out_rows.shape[0] != w:
+            msg = f"{w} window starts but {out_rows.shape[0]} output rows"
+            raise ValueError(msg)
+        if w and out_rows.min() < 0:
+            msg = "an output row is negative"
+            raise ValueError(msg)
+        ends = out_rows + np.clip(lengths, 0, int(doc_cap))
+        n_rows = int(ends.max()) if w else 0
+    nbytes = n_rows * row_bytes
     if out is None:
-        result = np.empty((w, int(doc_cap), row_bytes), dtype=np.uint8)
+        if out_rows is None:
+            result = np.empty((w, int(doc_cap), row_bytes), dtype=np.uint8)
+        else:
+            result = np.zeros((n_rows, row_bytes), dtype=np.uint8)
         dst = _ptr(result)
     else:
         if out.device.type != "cpu" or not out.is_contiguous():
             msg = "out must be a contiguous CPU tensor"
             raise ValueError(msg)
-        if out.numel() * out.element_size() != nbytes:
-            msg = f"out holds {out.numel() * out.element_size()} bytes, the gather writes {nbytes}"
+        held = out.numel() * out.element_size()
+        if held < nbytes or (out_rows is None and held != nbytes):
+            msg = f"out holds {held} bytes, the gather writes {nbytes}"
             raise ValueError(msg)
         result = out
         dst = ctypes.c_void_p(out.data_ptr())
     _count(gather_windows_u8)
-    lib.fp_gather_windows_u8(
-        _ptr(src), int(src.shape[0]), row_bytes, _ptr(indices), _ptr(lengths), w,
-        int(doc_cap), dst,
-    )
+    if out_rows is None:
+        lib.fp_gather_windows_u8(
+            _ptr(src), int(src.shape[0]), row_bytes, _ptr(indices), _ptr(lengths), w,
+            int(doc_cap), dst,
+        )
+    else:
+        lib.fp_gather_windows_packed_u8(
+            _ptr(src), int(src.shape[0]), row_bytes, _ptr(indices), _ptr(lengths),
+            _ptr(out_rows), w, int(doc_cap), dst,
+        )
     return result
 
 

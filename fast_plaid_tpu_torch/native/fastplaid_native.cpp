@@ -6,8 +6,8 @@
 //   * IVF construction: dedup of (cell, pid) pairs + CSR assembly
 //     (index/ivf.py::build_ivf, for builds of at least 1M codes)
 //   * the jagged token-window row gather of the low_memory path
-//     (search/searcher.py::host_gather_rows), written straight into the
-//     caller's (pinned) buffer
+//     (search/searcher.py::host_gather_rows, padded, and ::_pack_rows,
+//     packed), written straight into the caller's (pinned) buffer
 //
 // Built at first use by native/__init__.py
 // (g++ -O3 -march=native -shared -fPIC -std=c++17 -pthread).
@@ -25,6 +25,8 @@
 //     FP_MAX_THREADS, and the calling thread works too: a small gather spawns
 //     no thread, and callers that gather at once (one thread a shard) do not
 //     each start 16.
+// Beside them, fp_gather_windows_packed_u8 (no JAX counterpart) writes the
+// same windows packed: each one's valid rows at a row the caller gives.
 
 #include <algorithm>
 #include <atomic>
@@ -98,18 +100,30 @@ int64_t fp_build_ivf(const int32_t* codes, int64_t total_tokens,
 // ---------------------------------------------------------------------------
 // Jagged row gather (multi-threaded memcpy).
 //
-// For each of n_windows documents, copy doc_cap rows of row_bytes each from
-// src (the start clamped to [0, n_rows)), zero-filling rows past the doc's
-// length (clamped to [0, doc_cap]) and past the end of src.
+// Window w is min(max(lengths[w], 0), doc_cap) rows of row_bytes each from
+// src, from its start clamped to [0, n_rows); rows past the end of src are
+// zero. One thread per MiB written, at most FP_MAX_THREADS, the caller's
+// included.
 // indices: [n_windows] int64 start row per window
 // lengths: [n_windows] int32 valid rows per window
-// out:     [n_windows * doc_cap * row_bytes] bytes
+// out_rows == nullptr: out is [n_windows * doc_cap * row_bytes] bytes, window w
+//   at row w * doc_cap, zero-filled to doc_cap rows (the padded layout).
+// out_rows != nullptr: [n_windows] int64, window w's rows go to rows
+//   [out_rows[w], out_rows[w] + its length) of out and nothing else is
+//   written (the packed layout).
 // ---------------------------------------------------------------------------
-void fp_gather_windows_u8(const uint8_t* src, int64_t n_rows,
-                          int64_t row_bytes, const int64_t* indices,
-                          const int32_t* lengths, int64_t n_windows,
-                          int64_t doc_cap, uint8_t* out) {
-  const int64_t total = n_windows * doc_cap * row_bytes;
+static void gather_windows(const uint8_t* src, int64_t n_rows, int64_t row_bytes,
+                           const int64_t* indices, const int32_t* lengths,
+                           const int64_t* out_rows, int64_t n_windows,
+                           int64_t doc_cap, uint8_t* out) {
+  auto valid_of = [&](int64_t w) {
+    return std::min<int64_t>(std::max<int32_t>(lengths[w], 0), doc_cap);
+  };
+  int64_t total = n_windows * doc_cap * row_bytes;
+  if (out_rows != nullptr) {
+    total = 0;
+    for (int64_t w = 0; w < n_windows; ++w) total += valid_of(w) * row_bytes;
+  }
   const int hw = std::max(1, static_cast<int>(std::thread::hardware_concurrency()));
   const int n_threads = static_cast<int>(std::max<int64_t>(
       1, std::min<int64_t>({static_cast<int64_t>(std::min(hw, FP_MAX_THREADS)),
@@ -125,17 +139,17 @@ void fp_gather_windows_u8(const uint8_t* src, int64_t n_rows,
       for (int64_t w = start; w < end; ++w) {
         const int64_t base = std::min(std::max<int64_t>(indices[w], 0),
                                       std::max<int64_t>(n_rows - 1, 0));
-        const int64_t valid =
-            std::min<int64_t>(std::max<int32_t>(lengths[w], 0), doc_cap);
+        const int64_t valid = valid_of(w);
         const int64_t avail = std::max<int64_t>(0, std::min<int64_t>(valid, n_rows - base));
-        uint8_t* dst = out + w * doc_cap * row_bytes;
+        const int64_t fill = out_rows == nullptr ? doc_cap : valid;
+        uint8_t* dst = out + (out_rows == nullptr ? w * doc_cap : out_rows[w]) * row_bytes;
         if (avail > 0) {
           std::memcpy(dst, src + base * row_bytes,
                       static_cast<size_t>(avail * row_bytes));
         }
-        if (avail < doc_cap) {
+        if (avail < fill) {
           std::memset(dst + avail * row_bytes, 0,
-                      static_cast<size_t>((doc_cap - avail) * row_bytes));
+                      static_cast<size_t>((fill - avail) * row_bytes));
         }
       }
     }
@@ -146,6 +160,26 @@ void fp_gather_windows_u8(const uint8_t* src, int64_t n_rows,
   for (int i = 1; i < n_threads; ++i) threads.emplace_back(worker);
   worker();
   for (auto& th : threads) th.join();
+}
+
+// The padded layout: out [n_windows * doc_cap * row_bytes] bytes.
+void fp_gather_windows_u8(const uint8_t* src, int64_t n_rows,
+                          int64_t row_bytes, const int64_t* indices,
+                          const int32_t* lengths, int64_t n_windows,
+                          int64_t doc_cap, uint8_t* out) {
+  gather_windows(src, n_rows, row_bytes, indices, lengths, nullptr, n_windows,
+                 doc_cap, out);
+}
+
+// The packed layout: window w at row out_rows[w] of out, its valid rows only
+// (search/searcher.py::_pack_rows copies each distinct document of a pool
+// once, back to back).
+void fp_gather_windows_packed_u8(const uint8_t* src, int64_t n_rows,
+                                 int64_t row_bytes, const int64_t* indices,
+                                 const int32_t* lengths, const int64_t* out_rows,
+                                 int64_t n_windows, int64_t doc_cap, uint8_t* out) {
+  gather_windows(src, n_rows, row_bytes, indices, lengths, out_rows, n_windows,
+                 doc_cap, out);
 }
 
 }  // extern "C"

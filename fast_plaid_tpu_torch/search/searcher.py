@@ -9,11 +9,11 @@ plain PyTorch versions.
 A low_memory index keeps codes and residuals in host RAM. Its tiles run in
 a two-tile pipeline: the device candidate cascade (and, with the q4 cache
 resident, the q4 prefilter down to ``rescue_pool(top_k)`` rows a query),
-then a host gather of only those rows on a worker thread, then the
-codec-exact rerank of the gathered rows on the device. Token-score matrices
-gather the winners' rows on the host a second time. A low_memory search
-with a subset always takes the cascade, never the direct-subset pool, as in
-the JAX package.
+then a host gather of only those rows on a worker thread (each distinct
+document once, its valid tokens packed), then their expansion and the
+codec-exact rerank on the device. Token-score matrices gather the winners'
+rows on the host a second time. A low_memory search with a subset always
+takes the cascade, never the direct-subset pool, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -408,6 +408,107 @@ def host_gather_rows(
     )
 
 
+class PackedRows(NamedTuple):
+    """A rerank pool's token rows with each distinct document once.
+
+    ``codes`` [n + doc_cap] and ``residuals`` [n + doc_cap, PD] hold the
+    distinct documents' valid tokens back to back (n in all), then doc_cap
+    rows of any content, so that the doc_cap rows from any document's first
+    one lie inside; ``slots`` [2, B, R] int32 holds each pool slot's first
+    row and length.
+    """
+
+    codes: torch.Tensor
+    residuals: torch.Tensor
+    slots: torch.Tensor
+
+
+def _pack_windows(
+    src: np.ndarray,
+    offs: np.ndarray,
+    lens: np.ndarray,
+    starts: np.ndarray,
+    cap: int,
+    out: torch.Tensor,
+    use_native: bool,
+) -> None:
+    """Rows [off, off + len) of ``src`` for every window (``len`` at most
+    ``cap``), window w at rows [starts[w], starts[w] + len) of ``out``: the
+    valid rows of ``_gather_windows``' padded windows, byte for byte. The
+    C++ host gather writes them where it is built and ``use_native`` holds;
+    else the padded torch gather, cut to its valid rows."""
+    if use_native:
+        done = native.gather_windows_u8(src, offs, lens, cap, out=out, out_rows=starts)
+        if done is not None:
+            return
+    padded = _gather_windows(src, offs, lens, cap, False, False)
+    n = int(lens.sum())
+    out[:n] = padded[torch.from_numpy(np.arange(cap) < lens[:, None])]
+
+
+def _pack_rows(
+    loaded: LoadedIndex, pids: np.ndarray, *, pin: bool = False, use_native: bool = True
+) -> PackedRows:
+    """The token rows of ``pids`` [B, R], each distinct document copied once.
+
+    What crosses to the device in place of ``host_gather_rows``' padded
+    [B, R, doc_cap] rows: a pool repeats the documents that several queries
+    kept, and a document fills ``min(len, doc_cap)`` of its ``doc_cap``
+    rows. Pids outside [0, n_docs) fold into one empty document. The pinned
+    buffers are allocated at the padded size (and the spare rows), so that
+    torch's caching host allocator hands the same blocks back call after
+    call, and hold a prefix. ``_expand_rows`` rebuilds the padded rows on
+    the device.
+    """
+    doc_cap = loaded.ispec.doc_cap
+    n_docs = len(loaded.host_doc_lengths)
+    pids = np.asarray(pids, dtype=np.int64)
+    key = np.where((pids < 0) | (pids >= n_docs), n_docs, pids)
+    uniq, inv = np.unique(key, return_inverse=True)
+    live = uniq < n_docs
+    safe = np.minimum(uniq, max(n_docs - 1, 0))
+    lens = np.where(live, np.minimum(loaded.host_doc_lengths[safe], doc_cap), 0)
+    starts = np.cumsum(lens) - lens
+    offs = np.asarray(loaded.host_doc_offsets, np.int64)[safe]
+    n_tok = int(lens.sum())
+    bufs = []
+    for src in (loaded.host_codes, loaded.host_residuals):
+        dtype = torch.from_numpy(np.empty(0, src.dtype)).dtype
+        rows = (pids.size + 1) * doc_cap
+        buf = torch.empty((rows, *src.shape[1:]), dtype=dtype, pin_memory=pin)
+        _pack_windows(src, offs, lens, starts, doc_cap, buf, use_native)
+        bufs.append(buf[: n_tok + doc_cap])
+    slots = torch.empty((2, *pids.shape), dtype=torch.int32, pin_memory=pin)
+    inv = inv.reshape(pids.shape)
+    slots[0] = torch.from_numpy(starts[inv])
+    slots[1] = torch.from_numpy(lens[inv])
+    tracing.count("gather.rows", pids.size)
+    tracing.count("gather.distinct", int(live.sum()))
+    tracing.count("gather.bytes", sum(b[:n_tok].nbytes for b in bufs))
+    return PackedRows(*bufs, slots)
+
+
+def _expand_rows(rows: PackedRows, doc_cap: int):
+    """``rows`` (on the device) as ``host_gather_rows`` gives them: (codes_rows
+    [B, R, doc_cap], res_rows [B, R, doc_cap, PD], tok_valid [B, R, doc_cap]).
+
+    Each slot takes the doc_cap rows from its document's first one, a
+    window of an overlapping-window view (one ``index_select`` a tensor,
+    a block of doc_cap rows a slot), and is zeroed past its length in place.
+    """
+    codes, res, (start, length) = rows
+    tok_valid = torch.arange(doc_cap, device=start.device) < length[..., None]
+    first = start.reshape(-1).long()
+    out = []
+    for x in (codes, res):
+        rest = x.shape[1:]
+        n_win = x.shape[0] - doc_cap + 1
+        win = x.as_strided((n_win, doc_cap, *rest), (x.stride(0), *x.stride()))
+        got = win.index_select(0, first).view(*tok_valid.shape, *rest)
+        out.append(got.mul_(tok_valid.view(*tok_valid.shape, *[1] * len(rest))))
+    return (*out, tok_valid)
+
+
 def _lm_candidates(
     loaded: LoadedIndex,
     tile_dev: torch.Tensor,
@@ -453,21 +554,23 @@ def _lm_finish(
     mem_budget: int,
     want_tokens: bool = False,
 ):
-    """low_memory phase 3: device rerank of the rows gathered on the host.
+    """low_memory phase 3: device rerank of the rows packed on the host.
 
-    The token mask is rebuilt on the device from the resident lengths (the
-    same mask the host gather returns): a copy from pageable host memory
-    would wait for the whole stream, the next tile's cascade included. With
-    ``want_tokens`` the winners' rows are gathered on the host a second time
-    (into pinned memory on a GPU) and their token scores computed on the
-    device.
+    ``rows`` (``_pack_rows``) cross in their packed form and are expanded on
+    the device, where the packed copies are dropped before stage 6. The
+    token mask comes from the slots' lengths, which cross in pinned memory
+    with the rows: a copy from pageable host memory would wait for the
+    whole stream, the next tile's cascade included. With ``want_tokens``
+    the winners' rows are gathered on the host a second time (into pinned
+    memory on a GPU) and their token scores computed on the device.
     """
     ispec = loaded.ispec
     with tracing.span("search.upload"):
-        tracing.count("h2d.bytes", sum(x.numel() * x.element_size() for x in rows[:2]))
-        codes_rows, res_rows = (x.to(loaded.device, non_blocking=True) for x in rows[:2])
-        lens = loaded.dev.doc_lengths[p2.long()]
-        tok_valid = torch.arange(ispec.doc_cap, device=p2.device) < lens[..., None]
+        tracing.count("h2d.bytes", sum(x.numel() * x.element_size() for x in rows))
+        codes_rows, res_rows, tok_valid = _expand_rows(
+            PackedRows(*(x.to(loaded.device, non_blocking=True) for x in rows)),
+            ispec.doc_cap,
+        )
     exact = rerank_rows_core(
         codes_rows,
         res_rows,
@@ -713,10 +816,7 @@ def search_on_device(
             if ready is not None:
                 with tracing.span("search.host_gather.pool_wait"):
                     ready.synchronize()  # this tile's pool alone, not the whole stream
-            rows = host_gather_rows(loaded, p2_host.numpy(), pin=on_gpu)
-            tracing.count("gather.rows", p2_host.numel())
-            tracing.count("gather.bytes", sum(x.numel() * x.element_size() for x in rows[:2]))
-            return rows
+            return _pack_rows(loaded, p2_host.numpy(), pin=on_gpu)
 
     def finish_stage(start: int, end: int, job) -> None:
         try:

@@ -624,6 +624,47 @@ def test_native_gather_into_pinned_out(cuda):
         assert torch.equal(out.to(cuda, non_blocking=True).cpu(), want)
 
 
+def test_packed_rows_expand_on_the_card(cuda, tmp_path):
+    """low_memory's rows packed on the host into pinned memory, copied up
+    without blocking and expanded on the card: byte for byte the padded
+    rows of ``host_gather_rows``, with three pools in flight at once; and a
+    low_memory search finds each planted document as the resident one does."""
+    import numpy as np
+
+    from fast_plaid_tpu_torch.index.storage import load_index_data
+    from fast_plaid_tpu_torch.search import FastPlaid, load, searcher
+
+    rng = np.random.default_rng(8)
+    docs = [rng.standard_normal((int(n), 128)).astype(np.float32) for n in rng.integers(32, 180, 3000)]
+    fp = FastPlaid(str(tmp_path / "idx"), device="cuda", low_memory=False)
+    fp.create(docs, kmeans_niters=2)
+    lm = load._construct(load_index_data(str(tmp_path / "idx")), cuda, True)
+    assert lm.low_memory and lm.dev.emb_q4 is not None
+    n, cap = lm.ispec.n_docs, lm.ispec.doc_cap
+    pools = []
+    for seed in range(3):
+        pids = np.random.default_rng(seed).integers(0, n, (256, 40))
+        pids[:, 20:] = pids[:, :20]
+        pids[seed, ::3] = n
+        pools.append(pids)
+    with torch.inference_mode():
+        packed = [searcher._pack_rows(lm, p, pin=True) for p in pools]
+        assert all(x.is_pinned() for rows in packed for x in rows)
+        got = [searcher._expand_rows(searcher.PackedRows(*(x.to(cuda, non_blocking=True) for x in rows)), cap)
+               for rows in packed]
+        for g, pids in zip(got, pools):
+            for a, b in zip(g, searcher.host_gather_rows(lm, pids)):
+                assert a.device == cuda and torch.equal(a.cpu(), b)
+    qs = np.stack([d[:32] for d in docs[:256]])  # each query's top-1 is its own document
+    kw = dict(top_k=10, n_full_scores=4096, show_progress=False)
+    resident = fp.search(qs, **kw)
+    fp.indices[str(cuda)] = lm
+    low = fp.search(qs, **kw)
+    for res in (resident, low):
+        assert sum(r[0][0] == i for i, r in enumerate(res)) >= 250
+    fp.close()
+
+
 def test_staged_query_tile_rounds_like_numpy_on_the_card(cuda):
     """The search head's query tile crosses as float32 through pinned memory
     and is rounded to float16 on the card: bit for bit numpy's host cast, at

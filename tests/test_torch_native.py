@@ -6,7 +6,8 @@ dispatch) equals the JAX package's and the port's ``np.unique`` path array
 for array; ``gather_windows_u8`` equals the JAX package's and the torch
 gather byte for byte, at windows cut short by the end of the source,
 lengths past ``doc_cap``, negative and out-of-range starts, and into a
-preallocated output tensor; ``host_gather_rows`` on a low_memory index
+preallocated output tensor, and its packed layout (``out_rows``) equals the
+padded windows' valid rows; ``host_gather_rows`` on a low_memory index
 equals the JAX package's. Where g++ is missing here the native tests skip
 and the fallback tests still run.
 """
@@ -92,16 +93,55 @@ def _torch_gather(src, starts, lens, cap):
     return tsearcher._gather_windows(src, starts, lens, cap, False, use_native=False)
 
 
+def _out_rows(lens, cap, seed: int) -> np.ndarray:
+    """Packed destinations for windows of ``lens``: each window's clamped
+    length, in a shuffled order, with a gap of 0-2 rows before each."""
+    rng = np.random.default_rng(seed)
+    valid = np.clip(np.asarray(lens), 0, cap)
+    order = rng.permutation(len(valid))
+    rows = np.empty(len(valid), np.int64)
+    at = 0
+    for w in order:
+        at += int(rng.integers(0, 3))
+        rows[w] = at
+        at += int(valid[w])
+    return rows
+
+
+def _packed_from_padded(padded: np.ndarray, lens, out_rows, cap) -> np.ndarray:
+    """The packed layout built from padded windows: window w's first
+    min(len, cap) rows at out_rows[w], zeros elsewhere."""
+    valid = np.clip(np.asarray(lens), 0, cap)
+    ends = out_rows + valid
+    want = np.zeros((int(ends.max()) if len(ends) else 0, *padded.shape[2:]), padded.dtype)
+    for w, (r, v) in enumerate(zip(out_rows, valid)):
+        want[r : r + v] = padded[w, :v]
+    return want
+
+
+@pytest.mark.parametrize("layout", ["padded", "packed"])
 @pytest.mark.parametrize("row", [(8,), (4,), ()], ids=["u8x8", "u8x4", "int32"])
 @pytest.mark.parametrize("cap", [6, 1, 128])
-def test_gather_windows_matches_jax_and_torch(lib_ok, row, cap):
+def test_gather_windows_matches_jax_and_torch(lib_ok, row, cap, layout):
+    """Padded, the windows equal the JAX package's and the torch gather's;
+    packed, each window's valid rows equal its padded rows byte for byte,
+    zeros past the end of src included."""
     rng = np.random.default_rng(1)
     if row:
         src = rng.integers(0, 255, (100, *row)).astype(np.uint8)
     else:
         src = rng.integers(-(2**31), 2**31 - 1, 100).astype(np.int32)
-    got = tnative.gather_windows_u8(src, STARTS, LENS, cap)
+    padded = tnative.gather_windows_u8(src, STARTS, LENS, cap)
     jsrc = src if row else src.view(np.uint8).reshape(-1, 4)
+    if layout == "packed":
+        out_rows = _out_rows(LENS, cap, seed=cap)
+        got = tnative.gather_windows_u8(src, STARTS, LENS, cap, out_rows=out_rows)
+        np.testing.assert_array_equal(got, _packed_from_padded(padded, LENS, out_rows, cap))
+        if cap >= 6:  # the window cut short at the end of src, zero past it
+            np.testing.assert_array_equal(got[out_rows[2] : out_rows[2] + 5], jsrc[95:100])
+            assert not got[out_rows[2] + 5 : out_rows[2] + 6].any()
+        return
+    got = padded
     want = jnative.gather_windows_u8(jsrc, STARTS, LENS.astype(np.int32), cap)
     np.testing.assert_array_equal(got, want)
     plain = _torch_gather(src, STARTS, LENS, cap).numpy()
@@ -112,13 +152,32 @@ def test_gather_windows_matches_jax_and_torch(lib_ok, row, cap):
         assert not got[2, 5:].any() and not got[3].any() and not got[5, 5:].any()
 
 
-def test_gather_windows_into_out_tensor(lib_ok):
+@pytest.mark.parametrize("layout", ["padded", "packed"])
+def test_gather_windows_into_out_tensor(lib_ok, layout):
     """A preallocated contiguous tensor (the pinned buffer's stand-in on the
-    CPU) of any dtype is filled in place and returned."""
+    CPU) of any dtype is filled in place and returned; packed, the rows no
+    window owns keep what they held."""
     rng = np.random.default_rng(2)
     codes = rng.integers(0, 1000, 100).astype(np.int32)
-    out = torch.full((len(STARTS), 6), -7, dtype=torch.int32)
     calls = tnative.gather_windows_u8.calls
+    if layout == "packed":
+        out_rows = _out_rows(LENS, 6, seed=2)
+        out = torch.full((int((out_rows + np.minimum(LENS, 6)).max()) + 3,), -7, dtype=torch.int32)
+        got = tnative.gather_windows_u8(codes, STARTS, LENS, 6, out=out, out_rows=out_rows)
+        assert got is out and tnative.gather_windows_u8.calls == calls + 1
+        padded = _torch_gather(codes, STARTS, LENS, 6).numpy()
+        want = np.full(out.shape, -7, np.int32)
+        for w, r in enumerate(out_rows):
+            want[r : r + min(LENS[w], 6)] = padded[w, : min(LENS[w], 6)]
+        np.testing.assert_array_equal(out.numpy(), want)
+        with pytest.raises(ValueError, match="bytes"):
+            tnative.gather_windows_u8(codes, STARTS, LENS, 6, out=out[:-4], out_rows=out_rows)
+        with pytest.raises(ValueError, match="negative"):
+            tnative.gather_windows_u8(codes, STARTS, LENS, 6, out=out, out_rows=out_rows - out_rows.max())
+        with pytest.raises(ValueError, match="output rows"):
+            tnative.gather_windows_u8(codes, STARTS, LENS, 6, out=out, out_rows=out_rows[:-1])
+        return
+    out = torch.full((len(STARTS), 6), -7, dtype=torch.int32)
     got = tnative.gather_windows_u8(codes, STARTS, LENS, 6, out=out)
     assert got is out and tnative.gather_windows_u8.calls == calls + 1
     assert torch.equal(out, _torch_gather(codes, STARTS, LENS, 6))
@@ -130,21 +189,26 @@ def test_gather_windows_into_out_tensor(lib_ok):
         tnative.gather_windows_u8(codes, STARTS, LENS[:-1], 6)
 
 
-def test_gather_windows_concurrent_calls(lib_ok):
+@pytest.mark.parametrize("layout", ["padded", "packed"])
+def test_gather_windows_concurrent_calls(lib_ok, layout):
     """Eight threads gathering at once (as the shards of ``load_sharded_lm``
     do) each get the single-thread bytes, and every call is counted."""
     rng = np.random.default_rng(3)
     src = rng.integers(0, 255, (5_000, 68)).astype(np.uint8)
     starts = rng.integers(-10, 5_100, 512)
     lens = rng.integers(0, 200, 512)
-    want = tnative.gather_windows_u8(src, starts, lens, 160)
+    kw = {"out_rows": _out_rows(lens, 160, seed=3)} if layout == "packed" else {}
+    want = tnative.gather_windows_u8(src, starts, lens, 160, **kw)
+    if kw:
+        padded = tnative.gather_windows_u8(src, starts, lens, 160)
+        np.testing.assert_array_equal(want, _packed_from_padded(padded, lens, kw["out_rows"], 160))
     calls = tnative.gather_windows_u8.calls
     results, errors = [None] * 8, []
 
     def work(i):
         try:
             for _ in range(5):
-                results[i] = tnative.gather_windows_u8(src, starts, lens, 160)
+                results[i] = tnative.gather_windows_u8(src, starts, lens, 160, **kw)
         except Exception as exc:  # reported below
             errors.append(exc)
 

@@ -1,14 +1,20 @@
 """The search call's host head on the CPU: the plan memoised on the loaded
-index (``searcher.plan_search``) and the dense route of a one-shape batch.
+index (``searcher.plan_search``) and the dense route of a one-shape batch;
+and low_memory's rows, each distinct document packed once on the host and
+expanded on the device.
 
 The memo must give every call the plan the engine's policies give it fresh,
 and miss whenever an input of theirs changes; the dense route must give the
 answers, warnings and errors of the per-query route, and its float16 tile
-must be bit for bit the host's ``astype(np.float16)``.
+must be bit for bit the host's ``astype(np.float16)``. The expanded rows
+must be ``host_gather_rows``' bytes, and the search's answers those of the
+padded rows.
 """
 
 from __future__ import annotations
 
+import copy
+import dataclasses
 import sys
 import threading
 import types
@@ -18,8 +24,10 @@ import numpy as np
 import pytest
 import torch
 
+from fast_plaid_tpu_torch import native
 from fast_plaid_tpu_torch.index.layout import IndexSpec, round_up
-from fast_plaid_tpu_torch.search import FastPlaid, searcher
+from fast_plaid_tpu_torch.index.storage import load_index_data
+from fast_plaid_tpu_torch.search import FastPlaid, engine, load, searcher
 from fast_plaid_tpu_torch.search.engine import (
     candidate_capacity,
     rescue_pool,
@@ -337,3 +345,98 @@ def test_a_read_only_batch_is_staged_without_warnings(index_dir):
     with warnings.catch_warnings():
         warnings.simplefilter("error")
         assert fp.search(q, **SEARCH) == want
+
+
+# --------------------------------------------------------------------------
+# the low_memory rows: each distinct document packed once, expanded on the
+# device
+# --------------------------------------------------------------------------
+
+
+def _low_memory(index_dir: str) -> FastPlaid:
+    """A CPU instance with a low_memory load and the q4 cache (``reload_index``
+    keeps the CPU resident)."""
+    fp = FastPlaid(index_dir, device="cpu")
+    cpu = torch.device("cpu")
+    loaded = load._construct(load_index_data(index_dir), cpu, True, emb_cache_budget=10**9)
+    assert loaded.low_memory and loaded.dev.emb_q4 is not None
+    fp.indices[str(cpu)] = loaded
+    return fp
+
+
+def _pool_with_repeats(n_docs: int) -> np.ndarray:
+    """[6, 40] pids: repeats within a query and across queries, the sentinel
+    pid and pids on both sides of [0, n_docs)."""
+    pids = np.random.default_rng(5).integers(0, n_docs, (6, 40))
+    pids[:, 10:20] = pids[:, :10]
+    pids[1] = pids[0]
+    pids[2, ::7] = n_docs
+    pids[3, ::5] = -1
+    pids[3, 1::5] = n_docs + 9
+    pids[4, :3] = n_docs - 1
+    return pids
+
+
+@pytest.mark.parametrize("use_native", [True, False], ids=["native", "torch"])
+@pytest.mark.parametrize("layout", ["index", "cut"])
+def test_packed_rows_expand_to_the_padded_gather(index_dir, use_native, layout):
+    """``_pack_rows`` then ``_expand_rows`` give ``host_gather_rows``' three
+    tensors byte for byte; ``cut`` lowers doc_cap under the longest
+    documents and moves two windows past the ends of the host arrays."""
+    loaded = _low_memory(index_dir).indices["cpu"]
+    pids = _pool_with_repeats(loaded.ispec.n_docs)
+    if layout == "cut":
+        loaded = copy.copy(loaded)
+        loaded.ispec = dataclasses.replace(loaded.ispec, doc_cap=16)
+        offsets = np.array(loaded.host_doc_offsets, np.int64)
+        offsets[pids[0, 0]] = len(loaded.host_codes) - 3
+        offsets[pids[5, 0]] = -4
+        loaded.host_doc_offsets = offsets
+    cap = loaded.ispec.doc_cap
+    calls = native.gather_windows_u8.calls
+    packed = searcher._pack_rows(loaded, pids, use_native=use_native)
+    assert native.gather_windows_u8.calls == calls + 2 * (use_native and native.AVAILABLE)
+    got = searcher._expand_rows(packed, cap)
+    want = searcher.host_gather_rows(loaded, pids, use_native=use_native)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.equal(g, w)
+    distinct = np.unique(pids[(pids >= 0) & (pids < loaded.ispec.n_docs)])
+    tokens = int(np.minimum(loaded.host_doc_lengths[distinct], cap).sum())
+    assert packed.codes.shape[0] == packed.residuals.shape[0] == tokens + cap
+    assert packed.slots.dtype == torch.int32 and packed.slots.shape == (2, *pids.shape)
+
+
+def test_low_memory_search_equals_the_padded_composition(index_dir, monkeypatch):
+    """A low_memory search answers with the ids and scores of the padded
+    composition, ``host_gather_rows`` then ``rerank_rows``, on the same pool;
+    with queries that repeat documents it gathers fewer distinct documents
+    than pool slots."""
+    fp = _low_memory(index_dir)
+    finish, prior, pools = searcher._lm_finish, [], []
+
+    def both(loaded, tile_dev, p2, stats, rows, **kw):
+        pools.append(p2.numpy())
+        codes, res, valid = searcher.host_gather_rows(loaded, p2.numpy())
+        exact = engine.rerank_rows(
+            codes, res, valid, p2, loaded.dev.centroids, loaded.dev.bucket_weights, tile_dev,
+            nbits=loaded.ispec.nbits, sentinel_pid=loaded.ispec.sentinel_pid,
+            mem_budget=kw["mem_budget"],
+        )
+        prior.append(engine.final_topk_core(exact, p2, kw["top_k"]))
+        return finish(loaded, tile_dev, p2, stats, rows, **kw)
+
+    monkeypatch.setattr(searcher, "_lm_finish", both)
+    q = _queries(4)
+    q = np.concatenate([q, q, q[:2]])
+    tracing.enable()
+    got = fp.search(q, **SEARCH)
+    counters = tracing.drain()["counters"]
+    ids = torch.cat([p for p, _ in prior]).tolist()
+    scores = torch.cat([s for _, s in prior]).tolist()
+    want = [[(p, s) for p, s in zip(ip, sp) if p >= 0] for ip, sp in zip(ids, scores)]
+    assert got == want[: len(q)] and all(got)
+    (pool,) = pools
+    assert counters["gather.rows"] == pool.size
+    assert counters["gather.distinct"] == len(np.unique(pool[pool < fp.indices["cpu"].ispec.n_docs]))
+    assert 0 < counters["gather.distinct"] < counters["gather.rows"]

@@ -17,7 +17,7 @@ import torch
 from fast_plaid_tpu_torch.index.storage import load_index_data
 from fast_plaid_tpu_torch.ops import rerank_dedup
 from fast_plaid_tpu_torch.ops.kmeans import train_kmeans
-from fast_plaid_tpu_torch.search import FastPlaid, load
+from fast_plaid_tpu_torch.search import FastPlaid, load, searcher
 from fast_plaid_tpu_torch.utils import tracing
 
 torch.set_num_threads(2)
@@ -145,8 +145,15 @@ def test_tiles_count_the_padded_slots(index_dir):
 
 
 @pytest.mark.parametrize("path", ["resident", "low_memory"])
-def test_bytes_across_the_bus(index_dir, path):
+def test_bytes_across_the_bus(index_dir, path, monkeypatch):
     fp = _instance(index_dir, path)
+    pools, pack = [], searcher._pack_rows
+
+    def recorded(lm, p2, **kw):
+        pools.append(p2)
+        return pack(lm, p2, **kw)
+
+    monkeypatch.setattr(searcher, "_pack_rows", recorded)
     tracing.enable()
     fp.search(_queries(5), **SEARCH)
     counters = tracing.drain()["counters"]
@@ -154,13 +161,19 @@ def test_bytes_across_the_bus(index_dir, path):
     loaded = next(iter(fp.indices.values()))
     if path == "resident":
         assert counters["h2d.bytes"] == tile
-        assert "gather.rows" not in counters
+        assert "gather.rows" not in counters and not pools
     else:
         cap, pd = loaded.ispec.doc_cap, loaded.host_residuals.shape[1]
         rows = counters["gather.rows"]
         assert rows == counters["rerank.rows"] and rows % 5 == 0
-        assert counters["gather.bytes"] == rows * cap * (4 + pd)
-        assert counters["h2d.bytes"] == tile + counters["gather.bytes"]
+        # Each distinct document's valid tokens once; then doc_cap spare
+        # rows and each slot's (first row, length) cross with them.
+        (pool,) = pools
+        distinct = np.unique(pool[(pool >= 0) & (pool < loaded.ispec.n_docs)])
+        tokens = int(np.minimum(loaded.host_doc_lengths[distinct], cap).sum())
+        assert counters["gather.distinct"] == len(distinct) == counters["rerank.distinct_rows"]
+        assert counters["gather.bytes"] == tokens * (4 + pd) < rows * cap * (4 + pd)
+        assert counters["h2d.bytes"] == tile + counters["gather.bytes"] + cap * (4 + pd) + rows * 2 * 4
     # pids (int32), scores (float32) and stats (2 x int32) of the tile
     assert counters["d2h.bytes"] == 5 * 5 * 4 * 2 + 5 * 2 * 4
     assert 0 < counters["rerank.distinct_rows"] <= counters["rerank.rows"]
