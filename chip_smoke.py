@@ -183,6 +183,9 @@ from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 
 import numpy as np
 
+from perfbench import work as perf_work
+from perfbench.work import BF16_OPS, F32_OPS, HBM_BPS, bound  # noqa: F401 (tools/rerank_designs.py reads them here)
+
 ROOT = os.path.dirname(os.path.abspath(__file__))
 Q_LEN, DIM, TOP_K = 32, 128, 10
 N_PROBE, N_FULL = 8, 4096
@@ -236,54 +239,27 @@ def check_close(got, want, what: str) -> float:
     return err
 
 
-# The card's published peaks (NVIDIA H100 SXM data sheet, at 700 W): HBM3 bytes
-# a second, dense bf16 tensor-core and float32 (non-tensor) operations a second.
-HBM_BPS, BF16_OPS, F32_OPS = 3.35e12, 989e12, 67e12
-
-
-def bound(nbytes: float, ops: float, peak_ops: float) -> tuple[float, str]:
-    """The least time (ms) the card could take: bytes over the memory rate or
-    operations over the peak rate, whichever is larger, and which it was."""
-    t_b, t_o = nbytes / HBM_BPS, ops / peak_ops
-    return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
-
-
 def rerank_work(pids, lens, queries, n_docs: int, cap: int, d: int, q4_half: int = 0) -> dict:
-    """What the rerank function needs on these inputs. Each distinct
-    document's rows are read once, as many as the longest length asked of it
-    (bf16: len rows of 2D bytes, out-of-range pids empty; q4: min(len, caph)
-    packed rows of D bytes plus a scale, pids clamped); pids, lens and
-    queries are read once and the [B, R] scores written once; every valid
-    token of every slot costs 2 * Q * D operations. ``slot_row_bytes`` counts
-    the rows of every slot, as a kernel without reuse reads them."""
+    """``perfbench.work.rerank_work`` (``bytes``: each distinct document's
+    rows once, with the pids, lens, queries and scores), and
+    ``slot_row_bytes``: the rows of every slot, as a kernel without reuse
+    reads them."""
     import torch
 
     if q4_half:
-        p = pids.clamp(0, n_docs - 1).long()
-        ntok = lens.clamp(0, cap)
-        rows, row_bytes = ntok.clamp(max=q4_half), d
+        rows, row_bytes = lens.clamp(0, cap).clamp(max=q4_half), d
     else:
         ok = (pids >= 0) & (pids < n_docs)
-        p = torch.where(ok, pids, 0).long()
-        ntok = torch.where(ok, lens.clamp(0, cap), 0)
-        rows, row_bytes = ntok, 2 * d
-    per_doc = torch.zeros(n_docs, dtype=torch.int64, device=pids.device)
-    per_doc.scatter_reduce_(0, p.reshape(-1), rows.reshape(-1).long(), "amax")
-    distinct = int(per_doc.sum()) * row_bytes
-    if q4_half:
-        distinct += 4 * int((per_doc > 0).sum())
-    io = pids.numel() * 12 + queries.shape[0] * queries.shape[1] * d * 2
-    ops = 2 * queries.shape[1] * d * int(ntok.sum())
-    ms, by = bound(distinct + io, ops, BF16_OPS)
-    return {"distinct_row_bytes": distinct, "slot_row_bytes": int(rows.sum()) * row_bytes,
-            "ops": ops, "bound_ms": ms, "bound_by": by}
+        rows, row_bytes = torch.where(ok, lens.clamp(0, cap), 0), 2 * d
+    work = perf_work.rerank_work(pids, lens, queries, n_docs, cap, d, q4_half)
+    return {**work, "slot_row_bytes": int(rows.sum()) * row_bytes}
 
 
 def add_rates(rec: dict, work: dict) -> None:
     """GB/s on both byte counts and the share of the bound, beside ms."""
     rec.update(work)
     rec["GBps_slot_rows"] = work["slot_row_bytes"] / rec["ms"] / 1e6
-    rec["GBps_distinct_rows"] = work["distinct_row_bytes"] / rec["ms"] / 1e6
+    rec["GBps_distinct_rows"] = work["bytes"] / rec["ms"] / 1e6
     rec["share_of_bound"] = work["bound_ms"] / rec["ms"]
 
 
@@ -305,11 +281,9 @@ def check_estimate(pid, own, tbl, name: str, timing: bool = False) -> dict:
     if timing:
         rec["ms"] = cuda_time_ms(lambda: segmented_estimate(pid, own, tbl), 20)
         rec["plain_ms"] = cuda_time_ms(lambda: segmented_estimate_plain(pid, own, tbl), 3)
-        # Bytes the function needs: pid + own read, out written (4 B each), the
-        # table read once; a max per query token of every slot.
-        nbytes = pid.numel() * 12 + tbl.numel() * tbl.element_size()
-        rec["kernel_GBps"] = nbytes / rec["ms"] / 1e6
-        rec["bound_ms"], rec["bound_by"] = bound(nbytes, pid.numel() * tbl.shape[2], F32_OPS)
+        work = perf_work.estimate_work(pid, own, tbl)
+        rec["kernel_GBps"] = work["bytes"] / rec["ms"] / 1e6
+        rec["bound_ms"], rec["bound_by"] = work["bound_ms"], work["bound_by"]
     log(f"# estimate {json.dumps(rec)}")
     return rec
 
@@ -749,6 +723,31 @@ def engine_kwargs(loaded, mem_budget) -> dict:
         mem_budget=mem_budget, cand_cap=cand_cap, approx_mode=mode,
         slot_budget=slot_budget, rank_admit=rank_admit,
     )
+
+
+def lm_steps(loaded, tile, sub, kernels: bool, kw: dict):
+    """One tile through ``searcher.search_on_device``'s low_memory steps, not
+    pipelined: the cascade, the q4 prefilter, the host packing (timed), the
+    expansion and the rerank. ``kw`` is ``engine_kwargs``'. Returns ((pids,
+    scores, stats), the pool's pids on the host, the packing's ms)."""
+    from fast_plaid_tpu_torch.search import engine, searcher
+
+    ispec = loaded.ispec
+    p2, stats = engine.candidates_impl(
+        loaded.dev, tile, sub, ispec=ispec, n_ivf_probe=N_PROBE, n_full_scores=N_FULL,
+        mem_budget=kw["mem_budget"], cand_cap=kw["cand_cap"], approx_mode=kw["approx_mode"],
+        with_stats=True, slot_budget=kw["slot_budget"], use_estimate_kernel=kernels,
+        rank_admit=kw["rank_admit"])
+    p2 = engine.q4_prefilter(
+        loaded.dev, p2, tile, sentinel_pid=ispec.sentinel_pid, pool=engine.rescue_pool(TOP_K),
+        mem_budget=kw["mem_budget"], use_kernel=kernels)
+    host = p2.cpu().numpy()
+    t0 = time.perf_counter()
+    rows = searcher._pack_rows(loaded, host, pin=True)
+    pack_ms = (time.perf_counter() - t0) * 1e3
+    out = searcher._lm_finish(loaded, tile, p2, stats, rows, top_k=TOP_K,
+                              mem_budget=kw["mem_budget"])
+    return out, host, pack_ms
 
 
 def tile_latency(run, label: str, n: int = 30) -> tuple[float, float]:
@@ -1773,7 +1772,7 @@ def phase_sharded_disk(dev, counters, index_dir, queries, probe_q, probe_ids) ->
     lm.search(list(qs[:256]), mem_budget=lm_budget, **kw)  # warm-up
     torch.cuda.synchronize()
     counters.zero()
-    with Recorder(searcher, "_lm_candidates") as tiles:
+    with Recorder(searcher, "candidates_impl") as tiles:
         t0 = time.perf_counter()
         rows = lm.search(list(qs), mem_budget=lm_budget, **kw)
         torch.cuda.synchronize()
@@ -1931,22 +1930,11 @@ def phase_low_memory(dev, index_dir, queries, n_queries, probe_pids, counters, r
     gather_ms = []
     last_pids: list = []
 
-    def lm_tile(tile, kernels: bool, rec=None):
-        p2, stats = searcher._lm_candidates(
-            loaded, tile, n_ivf_probe=N_PROBE, n_full_scores=N_FULL,
-            cand_cap=kw["cand_cap"], approx_mode=kw["approx_mode"],
-            slot_budget=kw["slot_budget"], use_estimate_kernel=kernels,
-            rank_admit=kw["rank_admit"])
-        p2 = engine.q4_prefilter_core(
-            loaded.dev, p2, tile, sentinel_pid=ispec.sentinel_pid, pool=pool,
-            mem_budget=fp.mem_budget, use_kernel=kernels)
-        host = p2.cpu().numpy()
+    def lm_tile(tile, kernels: bool):
+        out, host, pack_ms = lm_steps(loaded, tile, None, kernels, kw)
         last_pids[:] = [host]
-        t0 = time.perf_counter()
-        rows = searcher._pack_rows(loaded, host, pin=True)
-        gather_ms.append((time.perf_counter() - t0) * 1e3)
-        return searcher._lm_finish(loaded, tile, p2, stats, rows, top_k=TOP_K,
-                                   mem_budget=fp.mem_budget)
+        gather_ms.append(pack_ms)
+        return out
 
     worst = 0.0
     with Recorder(engine, "maxsim_q4_gather_scores") as q4_rec:
@@ -2202,17 +2190,7 @@ def phase_mutable(dev, index_dir, docs, queries, n_queries, probe_pids, counters
                           counters, ("segmented_estimate", "maxsim_q4_gather_scores"))
 
         def lm_tile(k, tile=tile, sub_tile=sub_tile):
-            p2, stats = searcher._lm_candidates(
-                lm_l, tile, sub_tile, n_ivf_probe=N_PROBE, n_full_scores=N_FULL,
-                mem_budget=fp_lm.mem_budget, cand_cap=kw_lm["cand_cap"],
-                approx_mode=kw_lm["approx_mode"], slot_budget=kw_lm["slot_budget"],
-                use_estimate_kernel=k, rank_admit=kw_lm["rank_admit"])
-            p2 = engine.q4_prefilter_core(
-                lm_l.dev, p2, tile, sentinel_pid=lm_l.ispec.sentinel_pid,
-                pool=engine.rescue_pool(TOP_K), mem_budget=fp_lm.mem_budget, use_kernel=k)
-            rows_h = searcher._pack_rows(lm_l, p2.cpu().numpy(), pin=True)
-            return searcher._lm_finish(lm_l, tile, p2, stats, rows_h, top_k=TOP_K,
-                                       mem_budget=fp_lm.mem_budget)[:2]
+            return lm_steps(lm_l, tile, sub_tile, k, kw_lm)[0][:2]
 
         r["diff"], r["tile_ms"] = compare_tile(label, lm_tile)
         subset_res[("low_memory", name)] = r
@@ -2496,17 +2474,9 @@ def phase_long_docs(dev, counters, seed: int, n_docs: int = 4096) -> dict:
         last_pids: list = []
 
         def lm_tile(k):
-            p2, stats = searcher._lm_candidates(
-                lm, tile, n_ivf_probe=N_PROBE, n_full_scores=N_FULL, cand_cap=kw["cand_cap"],
-                approx_mode=kw["approx_mode"], slot_budget=kw["slot_budget"],
-                use_estimate_kernel=k, rank_admit=kw["rank_admit"])
-            p2 = engine.q4_prefilter_core(
-                lm.dev, p2, tile, sentinel_pid=lm.ispec.sentinel_pid,
-                pool=engine.rescue_pool(TOP_K), mem_budget=fp.mem_budget, use_kernel=k)
-            last_pids[:] = [p2.cpu().numpy()]
-            rows = searcher._pack_rows(lm, last_pids[0], pin=True)
-            return searcher._lm_finish(lm, tile, p2, stats, rows, top_k=TOP_K,
-                                       mem_budget=fp.mem_budget)[:2]
+            out, host, _ = lm_steps(lm, tile, None, k, kw)
+            last_pids[:] = [host]
+            return out[:2]
 
         res["diff"], _ = compare_tile("long docs, low_memory", lm_tile)
         res["tile_ms"] = tile_latency(lambda: lm_tile(True), "long docs, low_memory", n=10)
@@ -3109,17 +3079,9 @@ def phase_encoder(dev, counters, seed: int) -> dict:
         last_pids: list = []
 
         def lm_tile(k):
-            p2, stats = searcher._lm_candidates(
-                loaded, tile, n_ivf_probe=N_PROBE, n_full_scores=N_FULL, cand_cap=kw["cand_cap"],
-                approx_mode=kw["approx_mode"], slot_budget=kw["slot_budget"],
-                use_estimate_kernel=k, rank_admit=kw["rank_admit"])
-            p2 = engine.q4_prefilter_core(
-                loaded.dev, p2, tile, sentinel_pid=loaded.ispec.sentinel_pid,
-                pool=engine.rescue_pool(TOP_K), mem_budget=fp.mem_budget, use_kernel=k)
-            last_pids[:] = [p2.cpu().numpy()]
-            rows = searcher._pack_rows(loaded, last_pids[0], pin=True)
-            return searcher._lm_finish(loaded, tile, p2, stats, rows, top_k=TOP_K,
-                                       mem_budget=fp.mem_budget)[:2]
+            out, host, _ = lm_steps(loaded, tile, None, k, kw)
+            last_pids[:] = [host]
+            return out[:2]
 
         res["diff"], _ = compare_tile("encoded, default constructor", lm_tile)
         res["tile_ms"] = tile_latency(lambda: lm_tile(True), "encoded, default constructor",

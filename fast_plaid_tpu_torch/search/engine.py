@@ -13,17 +13,19 @@ Port of ``fast_plaid_tpu/search/engine.py``: the same static-shape cascade
   6. exact MaxSim over the pool: over the bf16 corpus cache through the
      dedup kernel (``ops/rerank_dedup.py``) where ``dedup_viable`` holds,
      else the per-query kernel (``ops/rerank_kernel.py``); or decompress +
-     MaxSim, after the q4 prefilter (``maxsim_q4_gather_scores``) has
-     narrowed the pool where only the 4-bit cache is resident. A
-     length-bucketed index reranks each bucket's share of the pool at the
-     bucket's cap (``_rerank_bucketed``), through the same two kernels over
-     the bucket's cache.
+     MaxSim, after the q4 prefilter (``q4_prefilter``) has narrowed the
+     pool where only the 4-bit cache is resident. A length-bucketed index
+     reranks each bucket's share of the pool at the bucket's cap
+     (``_rerank_bucketed``), through the same two kernels over the
+     bucket's cache. Every plain MaxSim runs in one chunk loop,
+     ``_chunked_maxsim``, whose callers say only where a chunk's rows come
+     from.
   7. final top-k
 
-``rerank_rows`` and ``q4_prefilter_core`` are low_memory's device steps
+``q4_prefilter`` and ``rerank_rows`` are also low_memory's device steps
 (``search/searcher.py``): the q4 prefilter, then the codec-exact rerank of
-rows gathered on the host; ``token_matrices`` gives its winners' token
-scores.
+rows gathered on the host. ``token_scores`` gives every path's winners'
+token scores.
 
 A subset restricts the probe to the cells its documents occupy
 (``_allowed_cells_mask``) and keeps only member pids in the candidate
@@ -76,16 +78,12 @@ from fast_plaid_tpu_torch.ops.rerank_kernel import (
 from fast_plaid_tpu_torch.utils import tracing
 
 __all__ = [
-    "search_core",
     "search_impl",
-    "candidates_core",
     "candidates_impl",
-    "final_topk_core",
-    "q4_prefilter_core",
+    "final_topk",
+    "q4_prefilter",
     "rerank_rows",
-    "rerank_rows_core",
-    "token_matrices",
-    "token_matrices_core",
+    "token_scores",
     "reconstruct_core",
     "reconstruct_rows_core",
     "candidate_capacity",
@@ -107,10 +105,6 @@ def _exact_scores(emb, queries, valid):
         queries.to(torch.bfloat16).to(torch.float32),
     )
     return maxsim_reduce(ts, valid), ts
-
-
-def _chunk_count(total: int, chunk: int) -> int:
-    return -(-total // chunk)
 
 
 def rescue_pool(top_k: int) -> int:
@@ -645,6 +639,55 @@ def _cache_scores(emb: torch.Tensor, pids, lens, queries) -> torch.Tensor:
     return maxsim_gather_scores(emb, pids, lens, queries)
 
 
+def _chunked_maxsim(take, queries: torch.Tensor, n: int, cap: int, mem_budget: int) -> torch.Tensor:
+    """Plain stage 6: exact MaxSim [B, n] float32 of a pool of n rows a
+    query, whose chunk [lo, hi) ``take(lo, hi)`` gives as (bf16 rows
+    [B, hi - lo, cap, D], token mask [B, hi - lo, cap]).
+
+    Chunked over n so that a chunk's rows and token scores stay within
+    ``mem_budget``; the last chunk is the shorter. Empty slots are each
+    caller's to mask: a chunk's rows are fetched only inside the loop, so
+    the [B, n, cap, ...] tensors never materialize in full.
+    """
+    b, q, d = queries.shape
+    per_row = b * cap * max(d * 4, q * 4)
+    n_chunk = max(4, min(n, mem_budget // max(1, per_row)))
+    parts = []
+    for lo in range(0, n, n_chunk):
+        emb, valid = take(lo, lo + n_chunk)
+        parts.append(_exact_scores(emb, queries, valid)[0])
+    return torch.cat(parts, dim=1)
+
+
+def _codec_rows(dev: DeviceIndex, codes: torch.Tensor, res: torch.Tensor, nbits: int) -> torch.Tensor:
+    """bf16 token rows [..., cap, D] decompressed from code rows [..., cap]
+    and residual rows [..., cap, PD]."""
+    return codec.decompress(
+        codes, res, dev.centroids, dev.bucket_weights, nbits, out_dtype=torch.bfloat16
+    )
+
+
+def _resident_rows(dev: DeviceIndex, pids: torch.Tensor, ispec: IndexSpec) -> torch.Tensor:
+    """bf16 token rows [..., doc_cap, D] of sentinel-safe ``pids`` from the
+    resident layout: the length buckets, the bf16 cache, or the codec."""
+    pids = pids.long()
+    if dev.buckets:
+        return _decompress_rows_bucketed(dev, pids, ispec=ispec, out_dtype=torch.bfloat16)
+    if dev.emb_cache is not None:
+        return dev.emb_cache[pids]
+    return _codec_rows(
+        dev, dev.codes[pids], gather_res(dev.residuals, pids, ispec.doc_cap), ispec.nbits
+    )
+
+
+def token_scores(emb: torch.Tensor, valid: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:
+    """[B, K, doc_cap, Q] float32 token-score matrices of the winners' bf16
+    rows ``emb`` [B, K, doc_cap, D] with mask ``valid`` [B, K, doc_cap],
+    zero past each document's length."""
+    _, tok = _exact_scores(emb, queries, valid)
+    return torch.where(valid[..., None], tok, 0.0)
+
+
 def _bucket_quota(r: int, ispec: IndexSpec, bi: int) -> int:
     """Static rerank-slot quota of length bucket ``bi``: twice its share of
     the documents plus a floor of 64, rounded up to 8, at most R.
@@ -670,29 +713,18 @@ def _score_bucket_rows(
     mem_budget: int,
 ) -> torch.Tensor:
     """Plain stage 6 over one bucket's rows -> [B, N]: from the bucket's
-    cache, or decompressed from its codec rows, chunked over N."""
-    b, n = rows.shape
-    q, d = queries.shape[1], queries.shape[2]
-    per_row = b * cap_b * max(d * 4, q * 4)
-    n_chunk = max(4, min(n, mem_budget // max(1, per_row)))
+    cache, or decompressed from its codec rows."""
     iota = torch.arange(cap_b, device=rows.device)
-    parts = []
-    for s in range(0, n, n_chunk):
-        rr = rows[:, s : s + n_chunk].long()
+
+    def take(lo: int, hi: int):
+        rr = rows[:, lo:hi].long()
         if bucket.emb is not None:
             emb = bucket.emb[rr]
         else:
-            emb = codec.decompress(
-                bucket.codes[rr],
-                gather_res(bucket.residuals, rr, cap_b),
-                dev.centroids,
-                dev.bucket_weights,
-                nbits,
-                out_dtype=torch.bfloat16,
-            )
-        sc, _ = _exact_scores(emb, queries, iota < lens[:, s : s + n_chunk, None])
-        parts.append(sc)
-    return torch.cat(parts, dim=1)
+            emb = _codec_rows(dev, bucket.codes[rr], gather_res(bucket.residuals, rr, cap_b), nbits)
+        return emb, iota < lens[:, lo:hi, None]
+
+    return _chunked_maxsim(take, queries, rows.shape[1], cap_b, mem_budget)
 
 
 def _rerank_bucketed(
@@ -789,41 +821,29 @@ def _decompress_rows_bucketed(
 
 
 def rerank_rows(
-    codes_rows: torch.Tensor,  # [B, R, doc_cap] int32
-    res_rows: torch.Tensor,  # [B, R, doc_cap, PD] uint8
-    tok_valid: torch.Tensor,  # [B, R, doc_cap] bool
-    pids: torch.Tensor,  # [B, R] int32 (sentinel padding)
-    centroids: torch.Tensor,
-    bucket_weights: torch.Tensor,
+    dev: DeviceIndex,
+    rows: tuple[torch.Tensor, torch.Tensor, torch.Tensor],
+    p2: torch.Tensor,  # [B, R] int32 (sentinel padding)
     queries: torch.Tensor,  # [B, Q, D]
     *,
-    nbits: int,
-    sentinel_pid: int,
+    ispec: IndexSpec,
     mem_budget: int = 256 * 1024 * 1024,
 ) -> torch.Tensor:
-    """Stage 6 over pre-gathered token rows: decompress + exact MaxSim,
-    [B, R] float32 with -inf at sentinel slots. Chunked over R so that the
-    decompressed [B, Rc, doc_cap, D] tile stays within ``mem_budget``."""
+    """low_memory's stage 6 over token rows gathered on the host: ``rows``
+    is (codes_rows [B, R, doc_cap] int32, res_rows [B, R, doc_cap, PD]
+    uint8, tok_valid [B, R, doc_cap] bool) of ``p2``. Decompress + exact
+    MaxSim, [B, R] float32 with -inf at sentinel slots."""
+    codes_rows, res_rows, tok_valid = rows
     with tracing.span("engine.rerank"):
-        _count_pool(pids, sentinel_pid)
+        _count_pool(p2, ispec.sentinel_pid)
         queries = queries.to(torch.float32)
-        b, r, doc_cap = codes_rows.shape
-        q, d = queries.shape[1], queries.shape[2]
-        per_row = b * doc_cap * max(d * 4, q * 4)
-        r_chunk = max(4, min(r, mem_budget // max(1, per_row)))
-        parts = []
-        for s in range(0, r, r_chunk):
-            emb = codec.decompress(
-                codes_rows[:, s : s + r_chunk],
-                res_rows[:, s : s + r_chunk],
-                centroids,
-                bucket_weights,
-                nbits,
-                out_dtype=torch.bfloat16,
-            )
-            sc, _ = _exact_scores(emb, queries, tok_valid[:, s : s + r_chunk])
-            parts.append(torch.where(pids[:, s : s + r_chunk] == sentinel_pid, NEG, sc))
-        return torch.cat(parts, dim=1)
+
+        def take(lo: int, hi: int):
+            emb = _codec_rows(dev, codes_rows[:, lo:hi], res_rows[:, lo:hi], ispec.nbits)
+            return emb, tok_valid[:, lo:hi]
+
+        exact = _chunked_maxsim(take, queries, p2.shape[1], ispec.doc_cap, mem_budget)
+        return torch.where(p2 == ispec.sentinel_pid, NEG, exact)
 
 
 def _q4_scores(dev: DeviceIndex, p2, queries, *, mem_budget: int, use_kernel: bool):
@@ -839,7 +859,7 @@ def _q4_scores(dev: DeviceIndex, p2, queries, *, mem_budget: int, use_kernel: bo
     )
 
 
-def q4_prefilter_core(
+def q4_prefilter(
     dev: DeviceIndex,
     p2: torch.Tensor,  # [B, R] rerank pool (sentinel_pid padding)
     queries: torch.Tensor,  # [B, Q, D]
@@ -851,9 +871,9 @@ def q4_prefilter_core(
 ) -> torch.Tensor:
     """Narrow the rerank pool through the q4 cache: [B, R] -> [B, pool] pids.
 
-    low_memory's phase 2: all R candidates are scored from the
-    device-resident q4 cache and the top ``pool`` go on to the host row
-    gather and the codec-exact rerank.
+    All R candidates are scored from the device-resident q4 cache and the
+    top ``pool`` go on to the codec-exact rerank: low_memory's phase 2,
+    before the host row gather, and the resident q4 tier's.
     """
     with tracing.span("engine.q4_prefilter"):
         queries = queries.to(torch.float32)
@@ -862,28 +882,9 @@ def q4_prefilter_core(
         return torch.where(torch.isneginf(s_m), sentinel_pid, torch.gather(p2, 1, i_m))
 
 
-def token_matrices(
-    codes_rows: torch.Tensor,  # [B, K, doc_cap] int32
-    res_rows: torch.Tensor,  # [B, K, doc_cap, PD] uint8
-    tok_valid: torch.Tensor,  # [B, K, doc_cap] bool
-    centroids: torch.Tensor,
-    bucket_weights: torch.Tensor,
-    queries: torch.Tensor,  # [B, Q, D]
-    *,
-    nbits: int,
-) -> torch.Tensor:
-    """[B, K, doc_cap, Q] float32 token-score matrices of winner documents
-    (zero past each document's length)."""
-    queries = queries.to(torch.float32)
-    emb = codec.decompress(
-        codes_rows, res_rows, centroids, bucket_weights, nbits,
-        out_dtype=torch.bfloat16,
-    )
-    _, tok = _exact_scores(emb, queries, tok_valid)
-    return torch.where(tok_valid[..., None], tok, 0.0)
-
-
-def _final_topk(exact: torch.Tensor, p2: torch.Tensor, top_k: int):
+def final_topk(exact: torch.Tensor, p2: torch.Tensor, top_k: int):
+    """Stage 7: the ``top_k`` best of ``exact`` [B, R] -> (pids [B, top_k]
+    int32 with -1 padding, scores [B, top_k] with -inf padding)."""
     with tracing.span("engine.topk"):
         r = p2.shape[1]
         kk = min(top_k, r)
@@ -963,8 +964,6 @@ def search_impl(
             rank_admit=rank_admit,
         )
         p2, stats = cand_out if with_stats else (cand_out, None)
-    b, q, d = queries.shape
-    r = p2.shape[1]
 
     # q4 prefilter tier: with only the 4-bit cache resident, score the whole
     # pool from it and rescore exactly (codec) only the top rescue_pool.
@@ -979,15 +978,12 @@ def search_impl(
         and dev.emb_cache is None
         and not dev.buckets
         and not exhaustive
-        and q4_pool < r
+        and q4_pool < p2.shape[1]
     ):
-        with tracing.span("engine.q4_prefilter"):
-            pre = _q4_scores(
-                dev, p2, queries, mem_budget=mem_budget, use_kernel=use_rerank_kernel
-            )
-            s_m, i_m = _top_k(pre, q4_pool)
-            p2 = torch.where(torch.isneginf(s_m), sent_pid, torch.gather(p2, 1, i_m))
-            r = q4_pool
+        p2 = q4_prefilter(
+            dev, p2, queries, sentinel_pid=sent_pid, pool=q4_pool,
+            mem_budget=mem_budget, use_kernel=use_rerank_kernel,
+        )
 
     with tracing.span("engine.rerank"):
         _count_pool(p2, sent_pid)
@@ -1006,54 +1002,22 @@ def search_impl(
             # reads each (document, requester group) row once instead.
             exact = _cache_scores(dev.emb_cache, p2, dev.doc_lengths[p2.long()], queries)
         else:
-            # Chunk over the rerank set with the gathers inside each chunk, so
-            # the [B, R, doc_cap, ...] token tensors never materialize in full.
-            per_row = b * doc_cap * max(d * 4, q * 4)
-            r_chunk = max(4, min(r, mem_budget // max(1, per_row)))
-            rn = _chunk_count(r, r_chunk)
-            p2_p = _pad_to(p2, rn * r_chunk, 1, sent_pid)
-            parts = []
-            for ci in range(rn):
-                pids = p2_p[:, ci * r_chunk : (ci + 1) * r_chunk]
+
+            def take(lo: int, hi: int):
+                pids = p2[:, lo:hi]
                 valid = _doc_mask(dev, pids, doc_cap)
-                if dev.emb_cache is not None:
-                    emb = dev.emb_cache[pids.long()]
-                else:
-                    emb = codec.decompress(
-                        dev.codes[pids.long()],
-                        gather_res(dev.residuals, pids, doc_cap),
-                        dev.centroids,
-                        dev.bucket_weights,
-                        ispec.nbits,
-                        out_dtype=torch.bfloat16,
-                    )  # [B, Rc, doc_cap, D] bf16
-                sc, _ = _exact_scores(emb, queries, valid)
-                parts.append(torch.where(pids == sent_pid, NEG, sc))
-            exact = torch.cat(parts, dim=1)[:, :r]
-    fp, fs = _final_topk(exact, p2, top_k)
+                return _resident_rows(dev, pids, ispec), valid
+
+            exact = _chunked_maxsim(take, queries, p2.shape[1], doc_cap, mem_budget)
+            exact = torch.where(p2 == sent_pid, NEG, exact)
+    fp, fs = final_topk(exact, p2, top_k)
     if not want_tokens:
         return (fp, fs, stats) if with_stats else (fp, fs)
 
     # Token-score matrices of the winners only, recomputed.
     safe = torch.where(fp < 0, sent_pid, fp).long()
     valid = _doc_mask(dev, safe, doc_cap)
-    if dev.buckets:
-        emb = _decompress_rows_bucketed(dev, safe, ispec=ispec, out_dtype=torch.bfloat16)
-        _, tok = _exact_scores(emb, queries, valid)
-        tok = torch.where(valid[..., None], tok, 0.0)
-    elif dev.emb_cache is not None:
-        _, tok = _exact_scores(dev.emb_cache[safe], queries, valid)
-        tok = torch.where(valid[..., None], tok, 0.0)
-    else:
-        tok = token_matrices(
-            dev.codes[safe],
-            gather_res(dev.residuals, safe, doc_cap),
-            valid,
-            dev.centroids,
-            dev.bucket_weights,
-            queries,
-            nbits=ispec.nbits,
-        )
+    tok = token_scores(_resident_rows(dev, safe, ispec), valid, queries)
     doc_lens = torch.where(fp < 0, 0, dev.doc_lengths[safe])
     if with_stats:
         return fp, fs, tok, doc_lens, stats
@@ -1098,14 +1062,6 @@ def reconstruct_core(
         )
     emb = torch.where(valid[..., None], emb, 0.0)
     return emb, dev.doc_lengths[pids]
-
-
-# The JAX package jit-compiles these; PyTorch runs them eagerly.
-search_core = search_impl
-candidates_core = candidates_impl
-rerank_rows_core = rerank_rows
-token_matrices_core = token_matrices
-final_topk_core = _final_topk
 
 
 # ---------------------------------------------------------------------------

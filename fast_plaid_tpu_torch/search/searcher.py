@@ -6,14 +6,16 @@ fixed-size tiles, and trimmed back to Python result lists. On a GPU the
 cascade's kernels run (stage 4, the q4 prefilter, stage 6); on the CPU their
 plain PyTorch versions.
 
-A low_memory index keeps codes and residuals in host RAM. Its tiles run in
-a two-tile pipeline: the device candidate cascade (and, with the q4 cache
-resident, the q4 prefilter down to ``rescue_pool(top_k)`` rows a query),
-then a host gather of only those rows on a worker thread (each distinct
-document once, its valid tokens packed), then their expansion and the
-codec-exact rerank on the device. Token-score matrices gather the winners'
-rows on the host a second time. A low_memory search with a subset always
-takes the cascade, never the direct-subset pool, as in the JAX package.
+Tiles run in one two-tile pipeline. A resident index enqueues a tile's
+whole cascade (``engine.search_impl``). A low_memory index keeps codes and
+residuals in host RAM: its tile enqueues the device candidate cascade (and,
+with the q4 cache resident, the q4 prefilter down to ``rescue_pool(top_k)``
+rows a query), then a host gather of only those rows on a worker thread
+(each distinct document once, its valid tokens packed); their expansion and
+the codec-exact rerank on the device follow when the tile leaves the
+pipeline. Token-score matrices gather the winners' rows on the host a second
+time. A low_memory search with a subset always takes the cascade, never the
+direct-subset pool, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -30,18 +32,19 @@ import torch
 
 from fast_plaid_tpu_torch import native
 from fast_plaid_tpu_torch.index.layout import DeviceIndex, round_up
+from fast_plaid_tpu_torch.ops import codec
 from fast_plaid_tpu_torch.search.engine import (
     candidate_capacity,
-    candidates_core,
-    final_topk_core,
-    q4_prefilter_core,
-    rerank_rows_core,
+    candidates_impl,
+    final_topk,
+    q4_prefilter,
+    rerank_rows,
     rescue_pool,
     resolve_approx_mode,
-    search_core,
+    search_impl,
     suggest_query_tile,
     suggest_slot_budget,
-    token_matrices_core,
+    token_scores,
 )
 from fast_plaid_tpu_torch.search.load import LoadedIndex
 from fast_plaid_tpu_torch.utils import tracing
@@ -157,13 +160,8 @@ def _pad_subsets(subsets: list[list[int]], n_docs: int, tile: slice) -> np.ndarr
 def _pad_queries(
     queries: list[np.ndarray], dim: int
 ) -> tuple[np.ndarray, list[int]]:
-    for q in queries:
-        if q.ndim != 2 or q.shape[-1] != dim:
-            msg = (
-                f"Query embeddings must be [tokens, {dim}] to match the "
-                f"index dimension; got shape {tuple(q.shape)}."
-            )
-            raise ValueError(msg)
+    """[n, Q, dim] float32 zero-padded to the token cap, and each query's
+    length, of [tokens, dim] queries."""
     lens = [int(q.shape[0]) for q in queries]
     q_cap = round_up(max(lens + [1]), 8)
     batch = np.zeros((len(queries), q_cap, dim), dtype=np.float32)
@@ -197,6 +195,43 @@ def _dense_batch(queries, dim: int) -> tuple[np.ndarray, list[int]] | None:
         batch[:, :q_len] = queries
     tracing.count("search.stage.dense", nq)
     return batch, [q_len] * nq
+
+
+def _checked_batch(queries, dim: int) -> tuple[np.ndarray, list[int], set[int]]:
+    """(padded batch, lengths, bad queries) of a batch, query by query.
+
+    A query whose shape is not [tokens, dim] or that holds a non-finite
+    value is bad: it stays in the batch as an empty query, with a
+    RuntimeWarning; a batch of bad queries alone raises ValueError.
+    """
+    bad: set[int] = set()
+    cleaned: list[np.ndarray] = []
+    for qi, q in enumerate(queries):
+        a = np.asarray(q, dtype=np.float32)
+        if a.ndim != 2 or a.shape[-1] != dim or not np.isfinite(a).all():
+            bad.add(qi)
+            cleaned.append(np.zeros((0, dim), np.float32))
+        else:
+            cleaned.append(a)
+    if len(bad) == len(queries):
+        shapes = sorted({tuple(np.asarray(q).shape) for q in queries})
+        msg = (
+            f"All queries are invalid: expected [tokens, {dim}] "
+            f"finite embeddings matching the index dimension; got shapes "
+            f"{shapes[:4]}."
+        )
+        raise ValueError(msg)
+    if bad:
+        preview = sorted(bad)[:8]
+        warnings.warn(
+            f"{len(bad)} quer{'y' if len(bad) == 1 else 'ies'} "
+            f"(indices {preview}{'...' if len(bad) > 8 else ''}) had "
+            f"non-finite values or a shape other than [tokens, {dim}]; "
+            "returning empty results for them",
+            RuntimeWarning,
+            stacklevel=3,
+        )
+    return (*_pad_queries(cleaned, dim), bad)
 
 
 def _stage_tile(queries: np.ndarray, rows: int, device: torch.device, half: bool) -> torch.Tensor:
@@ -509,40 +544,6 @@ def _expand_rows(rows: PackedRows, doc_cap: int):
     return (*out, tok_valid)
 
 
-def _lm_candidates(
-    loaded: LoadedIndex,
-    tile_dev: torch.Tensor,
-    sub_dev: torch.Tensor | None = None,
-    *,
-    n_ivf_probe: int,
-    n_full_scores: int,
-    mem_budget: int = 256 * 1024 * 1024,
-    cand_cap: int | None,
-    approx_mode: str,
-    slot_budget: int | None = None,
-    use_estimate_kernel: bool = False,
-    pool_divisor: int = 2,
-    rank_admit: int = 0,
-):
-    """low_memory phase 1: the device candidate cascade -> (p2, stats)."""
-    return candidates_core(
-        loaded.dev,
-        tile_dev,
-        sub_dev,
-        ispec=loaded.ispec,
-        n_ivf_probe=n_ivf_probe,
-        n_full_scores=n_full_scores,
-        mem_budget=mem_budget,
-        cand_cap=cand_cap,
-        approx_mode=approx_mode,
-        with_stats=True,
-        slot_budget=slot_budget,
-        use_estimate_kernel=use_estimate_kernel,
-        pool_divisor=pool_divisor,
-        rank_admit=rank_admit,
-    )
-
-
 def _lm_finish(
     loaded: LoadedIndex,
     tile_dev: torch.Tensor,
@@ -567,23 +568,12 @@ def _lm_finish(
     ispec = loaded.ispec
     with tracing.span("search.upload"):
         tracing.count("h2d.bytes", sum(x.numel() * x.element_size() for x in rows))
-        codes_rows, res_rows, tok_valid = _expand_rows(
+        rows = _expand_rows(
             PackedRows(*(x.to(loaded.device, non_blocking=True) for x in rows)),
             ispec.doc_cap,
         )
-    exact = rerank_rows_core(
-        codes_rows,
-        res_rows,
-        tok_valid,
-        p2,
-        loaded.dev.centroids,
-        loaded.dev.bucket_weights,
-        tile_dev,
-        nbits=ispec.nbits,
-        sentinel_pid=ispec.sentinel_pid,
-        mem_budget=mem_budget,
-    )
-    fp, fs = final_topk_core(exact, p2, top_k)
+    exact = rerank_rows(loaded.dev, rows, p2, tile_dev, ispec=ispec, mem_budget=mem_budget)
+    fp, fs = final_topk(exact, p2, top_k)
     if not want_tokens:
         return fp, fs, stats
     fp_host, ready = _to_host_async(fp)
@@ -599,15 +589,11 @@ def _lm_finish(
     safe = torch.where(fp < 0, ispec.sentinel_pid, fp).long()
     doc_lens = torch.where(fp < 0, 0, loaded.dev.doc_lengths[safe])
     valid_k = torch.arange(ispec.doc_cap, device=fp.device) < doc_lens[..., None]
-    tok = token_matrices_core(
-        codes_k,
-        res_k,
-        valid_k,
-        loaded.dev.centroids,
-        loaded.dev.bucket_weights,
-        tile_dev,
-        nbits=ispec.nbits,
+    emb_k = codec.decompress(
+        codes_k, res_k, loaded.dev.centroids, loaded.dev.bucket_weights, ispec.nbits,
+        out_dtype=torch.bfloat16,
     )
+    tok = token_scores(emb_k, valid_k, tile_dev.to(torch.float32))
     return fp, fs, tok, doc_lens, stats
 
 
@@ -666,38 +652,12 @@ def search_on_device(
             raise ValueError(msg)
         if len(queries) == 0:
             return []
-        bad_queries: set[int] = set()
         dense = _dense_batch(queries, ispec.dim)
         if dense is not None:
             batch, q_lens = dense
+            bad_queries: set[int] = set()
         else:
-            cleaned: list[np.ndarray] = []
-            for qi, q in enumerate(queries):
-                a = np.asarray(q, dtype=np.float32)
-                if a.ndim != 2 or a.shape[-1] != ispec.dim or not np.isfinite(a).all():
-                    bad_queries.add(qi)
-                    cleaned.append(np.zeros((0, ispec.dim), np.float32))
-                else:
-                    cleaned.append(a)
-            if len(bad_queries) == len(queries):
-                shapes = sorted({tuple(np.asarray(q).shape) for q in queries})
-                msg = (
-                    f"All queries are invalid: expected [tokens, {ispec.dim}] "
-                    f"finite embeddings matching the index dimension; got shapes "
-                    f"{shapes[:4]}."
-                )
-                raise ValueError(msg)
-            if bad_queries:
-                preview = sorted(bad_queries)[:8]
-                warnings.warn(
-                    f"{len(bad_queries)} quer{'y' if len(bad_queries) == 1 else 'ies'} "
-                    f"(indices {preview}{'...' if len(bad_queries) > 8 else ''}) had "
-                    f"non-finite values or a shape other than [tokens, {ispec.dim}]; "
-                    "returning empty results for them",
-                    RuntimeWarning,
-                    stacklevel=2,
-                )
-            batch, q_lens = _pad_queries(cleaned, ispec.dim)
+            batch, q_lens, bad_queries = _checked_batch(queries, ispec.dim)
         nq, q_cap, _ = batch.shape
         if pool_divisor is None:
             pool_divisor = int(os.environ.get("FASTPLAID_POOL_DIV", "2"))
@@ -714,9 +674,6 @@ def search_on_device(
             pool_divisor=pool_divisor,
             rank_admit=rank_admit,
         )
-        cand_cap, slot_budget = plan.cand_cap, plan.slot_budget
-        approx_mode, rank_admit = plan.approx_mode, plan.rank_admit
-        lm_q4 = plan.lm_q4
         b_tile = max(1, min(plan.tile, nq))
 
         results: list = []
@@ -733,83 +690,42 @@ def search_on_device(
 
         on_gpu = loaded.device.type == "cuda"
         est_kernel, use_kernel = kernel_flags(loaded.dev)
+        cascade = dict(
+            ispec=ispec,
+            n_ivf_probe=n_ivf_probe,
+            n_full_scores=n_full_scores,
+            mem_budget=mem_budget,
+            cand_cap=plan.cand_cap,
+            approx_mode=plan.approx_mode,
+            with_stats=True,
+            slot_budget=plan.slot_budget,
+            use_estimate_kernel=est_kernel,
+            pool_divisor=pool_divisor,
+            rank_admit=plan.rank_admit,
+        )
         n_tiles = -(-nq // b_tile)
         tracing.count("search.queries", nq)
         tracing.count("search.tiles", n_tiles)
         tracing.count("search.query_slots", n_tiles * b_tile)
 
-    def make_tile(start: int):
+    def stage(start: int):
         with tracing.span("search.upload"):
-            return upload_tile(start)
-
-    def upload_tile(start: int):
-        end = min(start + b_tile, nq)
-        # The tile is padded to the static size. Queries reach the engine at
-        # half width on a GPU (unit-norm values lose ~5e-4 relative in
-        # float16; the engine upcasts them), and stay float32 on the CPU.
-        tile_dev = _stage_tile(batch[start:end], b_tile, loaded.device, half=on_gpu)
-        sub_dev = None
-        if subsets is not None:
-            sub = _pad_subsets(subsets, ispec.n_docs, slice(start, end))
-            if sub.shape[0] < b_tile:
-                pad = np.full(
-                    (b_tile - sub.shape[0], sub.shape[1]), ispec.n_docs, np.int32
-                )
-                sub = np.concatenate([sub, pad])
-            tracing.count("h2d.bytes", sub.nbytes)
-            sub_dev = torch.from_numpy(sub).to(loaded.device)
-        return end, tile_dev, sub_dev
-
-    def emit(out, start: int, end: int) -> None:
-        with tracing.span("search.emit"):
-            emit_results(out, start, end)
-
-    def emit_results(out, start: int, end: int) -> None:
-        nonlocal pruned_total, overflow_total
-        try:
-            if isinstance(out, Exception):
-                raise out
-            with tracing.span("search.emit.wait"):
-                host = [t.cpu().numpy() for t in out]
-            tracing.count("d2h.bytes", sum(a.nbytes for a in host))
-            if want_tokens:
-                pids, scores, tok, doc_lens, stats = host
-            else:
-                pids, scores, stats = host
-        except RuntimeError as exc:  # device-side failure: contain to this tile
-            warnings.warn(
-                f"search failed for queries [{start}, {end}) — returning "
-                f"empty results for them: {exc}",
-                RuntimeWarning,
-                stacklevel=2,
-            )
-            results.extend([[] for _ in range(end - start)])
-            return
-        pruned_total += int(stats[: end - start, 0].sum())
-        overflow_total += int(stats[: end - start, 1].sum())
-        pids_l = pids[: end - start].tolist()
-        scores_l = scores[: end - start].tolist()
-        for bi in range(end - start):
-            if (start + bi) in bad_queries:
-                results.append([])
-                continue
-            if want_tokens:
-                qlen = q_lens[start + bi]
-                results.append(
-                    [
-                        (pid, score, tok[bi, ki, : doc_lens[bi, ki], :qlen].T.copy())
-                        for ki, (pid, score) in enumerate(zip(pids_l[bi], scores_l[bi]))
-                        if pid >= 0
-                    ]
-                )
-            else:
-                results.append(
-                    [
-                        (pid, score)
-                        for pid, score in zip(pids_l[bi], scores_l[bi])
-                        if pid >= 0
-                    ]
-                )
+            end = min(start + b_tile, nq)
+            # The tile is padded to the static size. Queries reach the engine
+            # at half width on a GPU (unit-norm values lose ~5e-4 relative in
+            # float16; the engine upcasts them), and stay float32 on the CPU.
+            tile_dev = _stage_tile(batch[start:end], b_tile, loaded.device, half=on_gpu)
+            sub_dev = None
+            if subsets is not None:
+                sub = _pad_subsets(subsets, ispec.n_docs, slice(start, end))
+                if sub.shape[0] < b_tile:
+                    pad = np.full(
+                        (b_tile - sub.shape[0], sub.shape[1]), ispec.n_docs, np.int32
+                    )
+                    sub = np.concatenate([sub, pad])
+                tracing.count("h2d.bytes", sub.nbytes)
+                sub_dev = torch.from_numpy(sub).to(loaded.device)
+            return end, tile_dev, sub_dev
 
     def gather_stage(p2_host, ready):
         with tracing.span("search.host_gather"):
@@ -818,102 +734,103 @@ def search_on_device(
                     ready.synchronize()  # this tile's pool alone, not the whole stream
             return _pack_rows(loaded, p2_host.numpy(), pin=on_gpu)
 
-    def finish_stage(start: int, end: int, job) -> None:
+    def enqueue(start: int, pool: ThreadPoolExecutor):
+        """Stage tile ``start`` and enqueue its device work: the whole
+        cascade, or on low_memory the cascade to the pool and the pool's
+        host gather on the worker."""
+        end, tile_dev, sub_dev = stage(start)
         try:
-            if isinstance(job, Exception):
-                raise job
-            tile_dev, p2, stats, fut = job
-            with tracing.span("search.gather_wait"):
-                rows = fut.result()
-            out = _lm_finish(
-                loaded, tile_dev, p2, stats, rows, top_k=top_k,
-                mem_budget=mem_budget, want_tokens=want_tokens,
-            )
-        except RuntimeError as exc:  # gather/rerank failure: emit contains it
-            out = exc
-        emit(out, start, end)
+            if not loaded.low_memory:
+                out = search_impl(
+                    loaded.dev, tile_dev, sub_dev, top_k=top_k, want_tokens=want_tokens,
+                    use_rerank_kernel=use_kernel, **cascade,
+                )
+                return start, end, out
+            p2, stats = candidates_impl(loaded.dev, tile_dev, sub_dev, **cascade)
+            if plan.lm_q4:
+                p2 = q4_prefilter(
+                    loaded.dev, p2, tile_dev, sentinel_pid=ispec.sentinel_pid,
+                    pool=rescue_pool(top_k), mem_budget=mem_budget, use_kernel=use_kernel,
+                )
+            fut = pool.submit(tracing.bind(gather_stage), *_to_host_async(p2))
+            return start, end, (tile_dev, p2, stats, fut)
+        except NotImplementedError:
+            raise
+        except RuntimeError as exc:  # e.g. out of device memory
+            return start, end, exc
 
-    inflight: deque = deque()
-    with torch.inference_mode():
-        if loaded.low_memory:
-            # Two tiles in flight: tile i + 1's candidate cascade is enqueued
-            # before tile i's host gather (on the worker thread) is awaited,
-            # so neither the host gather nor the device cascade waits on the
-            # other.
-            with ThreadPoolExecutor(max_workers=1) as pool:
-                for start in iterator:
-                    end, tile_dev, sub_dev = make_tile(start)
-                    try:
-                        p2, stats = _lm_candidates(
-                            loaded,
-                            tile_dev,
-                            sub_dev,
-                            n_ivf_probe=n_ivf_probe,
-                            n_full_scores=n_full_scores,
-                            mem_budget=mem_budget,
-                            cand_cap=cand_cap,
-                            approx_mode=approx_mode,
-                            slot_budget=slot_budget,
-                            use_estimate_kernel=est_kernel,
-                            pool_divisor=pool_divisor,
-                            rank_admit=rank_admit,
-                        )
-                        if lm_q4:
-                            p2 = q4_prefilter_core(
-                                loaded.dev,
-                                p2,
-                                tile_dev,
-                                sentinel_pid=ispec.sentinel_pid,
-                                pool=rescue_pool(top_k),
-                                mem_budget=mem_budget,
-                                use_kernel=use_kernel,
-                            )
-                        fut = pool.submit(tracing.bind(gather_stage), *_to_host_async(p2))
-                        job = (tile_dev, p2, stats, fut)
-                    except NotImplementedError:
-                        raise
-                    except RuntimeError as exc:  # e.g. out of device memory
-                        job = exc
-                    inflight.append((start, end, job))
-                    if len(inflight) >= 2:
-                        finish_stage(*inflight.popleft())
-                while inflight:
-                    finish_stage(*inflight.popleft())
-        else:
-            # Dispatch ahead of conversion: the device->host copy in emit()
-            # waits for the device, so tile i converts only after tile i+1
-            # is enqueued.
-            for start in iterator:
-                end, tile_dev, sub_dev = make_tile(start)
-                try:
-                    out = search_core(
-                        loaded.dev,
-                        tile_dev,
-                        sub_dev,
-                        ispec=ispec,
-                        top_k=top_k,
-                        n_ivf_probe=n_ivf_probe,
-                        n_full_scores=n_full_scores,
-                        want_tokens=want_tokens,
-                        mem_budget=mem_budget,
-                        cand_cap=cand_cap,
-                        approx_mode=approx_mode,
-                        with_stats=True,
-                        use_rerank_kernel=use_kernel,
-                        slot_budget=slot_budget,
-                        use_estimate_kernel=est_kernel,
-                        pool_divisor=pool_divisor,
-                        rank_admit=rank_admit,
+    def finish(start: int, end: int, out) -> None:
+        """Emit a tile's results; on low_memory first await its host gather
+        and rerank it. A RuntimeError of the tile's work empties them."""
+        nonlocal pruned_total, overflow_total
+        if loaded.low_memory and not isinstance(out, Exception):
+            try:
+                tile_dev, p2, stats, fut = out
+                with tracing.span("search.gather_wait"):
+                    rows = fut.result()
+                out = _lm_finish(
+                    loaded, tile_dev, p2, stats, rows, top_k=top_k,
+                    mem_budget=mem_budget, want_tokens=want_tokens,
+                )
+            except RuntimeError as exc:  # gather/rerank failure: contained below
+                out = exc
+        with tracing.span("search.emit"):
+            try:
+                if isinstance(out, Exception):
+                    raise out
+                with tracing.span("search.emit.wait"):
+                    host = [t.cpu().numpy() for t in out]
+                tracing.count("d2h.bytes", sum(a.nbytes for a in host))
+                if want_tokens:
+                    pids, scores, tok, doc_lens, stats = host
+                else:
+                    pids, scores, stats = host
+            except RuntimeError as exc:  # device-side failure: contain to this tile
+                warnings.warn(
+                    f"search failed for queries [{start}, {end}) — returning "
+                    f"empty results for them: {exc}",
+                    RuntimeWarning,
+                    stacklevel=2,
+                )
+                results.extend([[] for _ in range(end - start)])
+                return
+            pruned_total += int(stats[: end - start, 0].sum())
+            overflow_total += int(stats[: end - start, 1].sum())
+            pids_l = pids[: end - start].tolist()
+            scores_l = scores[: end - start].tolist()
+            for bi in range(end - start):
+                if (start + bi) in bad_queries:
+                    results.append([])
+                    continue
+                if want_tokens:
+                    qlen = q_lens[start + bi]
+                    results.append(
+                        [
+                            (pid, score, tok[bi, ki, : doc_lens[bi, ki], :qlen].T.copy())
+                            for ki, (pid, score) in enumerate(zip(pids_l[bi], scores_l[bi]))
+                            if pid >= 0
+                        ]
                     )
-                except NotImplementedError:
-                    raise
-                except RuntimeError as exc:  # e.g. out of device memory
-                    out = exc
-                inflight.append((out, start, end))
-                if len(inflight) >= 2:
-                    emit(*inflight.popleft())
-            while inflight:
-                emit(*inflight.popleft())
+                else:
+                    results.append(
+                        [
+                            (pid, score)
+                            for pid, score in zip(pids_l[bi], scores_l[bi])
+                            if pid >= 0
+                        ]
+                    )
+
+    # Two tiles in flight: tile i + 1's device work is enqueued before tile
+    # i is finished, so that its device->host copy (and on low_memory its
+    # host gather, on the worker thread) never waits for the device idle.
+    inflight: deque = deque()
+    with torch.inference_mode(), ThreadPoolExecutor(max_workers=1) as pool:
+        for start in iterator:
+            inflight.append(enqueue(start, pool))
+            if len(inflight) >= 2:
+                finish(*inflight.popleft())
+        while inflight:
+            finish(*inflight.popleft())
 
     live = {t.ident for t in threading.enumerate()}
     for ident in [k for k in _LAST_STATS if k not in live]:
@@ -923,8 +840,8 @@ def search_on_device(
         "budget_pruned_slots": pruned_total,
         "cap_overflow_slots": overflow_total,
         "queries": nq,
-        "approx_mode": approx_mode,
-        "rank_admit": rank_admit,
+        "approx_mode": plan.approx_mode,
+        "rank_admit": plan.rank_admit,
     }
     if overflow_total:
         warnings.warn(

@@ -173,7 +173,7 @@ def test_tokens_pool_matches_jax(coarse, monkeypatch):
         return seen["est"]
 
     monkeypatch.setattr(tengine, "_token_estimates", record)
-    pt, stt = (x.numpy() for x in tengine.candidates_core(
+    pt, stt = (x.numpy() for x in tengine.candidates_impl(
         c["dev_t"], torch.from_numpy(q), None, ispec=c["spec_t"], **kw))
     assert pt.shape == pj.shape == (q.shape[0], 16)
     np.testing.assert_array_equal(stt, stj)
@@ -196,7 +196,7 @@ def test_tokens_search_with_subset_matches_jax(coarse):
     kw = dict(top_k=5, n_ivf_probe=4, n_full_scores=8, approx_mode="tokens", want_tokens=False)
     pj, sj = (np.asarray(x) for x in jengine.search_core(
         c["dev_j"], jnp.asarray(q), jnp.asarray(sub), ispec=c["spec_j"], **kw))
-    pt, st = (x.numpy() for x in tengine.search_core(
+    pt, st = (x.numpy() for x in tengine.search_impl(
         c["dev_t"], torch.from_numpy(q), torch.from_numpy(sub), ispec=c["spec_t"], **kw))
     np.testing.assert_allclose(st, sj, rtol=0, atol=TOL)
     assert set(pt[pt >= 0].tolist()) <= set(sub[0].tolist())

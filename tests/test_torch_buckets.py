@@ -71,7 +71,7 @@ def ulp_bf16(x: np.ndarray) -> np.ndarray:
 
 def _search_both(dev_j, spec_j, dev_t, spec_t, queries, **kw):
     out_j = [np.asarray(x) for x in jengine.search_core(dev_j, jnp.asarray(queries), None, ispec=spec_j, **kw)]
-    out_t = [x.numpy() for x in tengine.search_core(dev_t, torch.from_numpy(queries), None, ispec=spec_t, **kw)]
+    out_t = [x.numpy() for x in tengine.search_impl(dev_t, torch.from_numpy(queries), None, ispec=spec_t, **kw)]
     return out_j, out_t
 
 
@@ -137,13 +137,13 @@ def test_bucketed_search_matches_single_cap(skewed, emb_cache):
     np.testing.assert_allclose(st, sj, rtol=0, atol=TOL)
     np.testing.assert_array_equal(stt, stj)  # quota drops counted alike
     # Through the kernel wrappers (their plain versions on the CPU).
-    pk, sk, _ = (x.numpy() for x in tengine.search_core(
+    pk, sk, _ = (x.numpy() for x in tengine.search_impl(
         t1, torch.from_numpy(queries), None, ispec=s1, use_rerank_kernel=True,
         use_estimate_kernel=True, **kw))
     np.testing.assert_array_equal(pk, pj)
     np.testing.assert_allclose(sk, sj, rtol=0, atol=TOL)
     # Against the port's single-cap layout, as the JAX test holds its own.
-    p0, sc0, _ = (x.numpy() for x in tengine.search_core(t0, torch.from_numpy(queries), None, ispec=s0, **kw))
+    p0, sc0, _ = (x.numpy() for x in tengine.search_impl(t0, torch.from_numpy(queries), None, ispec=s0, **kw))
     np.testing.assert_array_equal(p0, pt)
     np.testing.assert_allclose(sc0, st, rtol=2e-2, atol=2e-2)
     assert pt[-3:, 0].tolist() == [2, 111, 397]
@@ -163,7 +163,7 @@ def test_bucketed_token_scores_match():
     np.testing.assert_array_equal(pt, pj)
     np.testing.assert_array_equal(lt, lj)
     np.testing.assert_allclose(tt, tj, rtol=0, atol=TOL)
-    p0, _, tok0, l0 = (x.numpy() for x in tengine.search_core(t0, torch.from_numpy(queries), None, ispec=s0, **kw))
+    p0, _, tok0, l0 = (x.numpy() for x in tengine.search_impl(t0, torch.from_numpy(queries), None, ispec=s0, **kw))
     np.testing.assert_array_equal(p0, pt)
     np.testing.assert_array_equal(l0, lt)
     np.testing.assert_allclose(tok0, tt, rtol=2e-2, atol=2e-2)

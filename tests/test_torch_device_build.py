@@ -45,7 +45,7 @@ def corpus():
 
 def _search(dev, ispec, queries, **kw):
     kw = dict(dict(top_k=10, n_ivf_probe=8, n_full_scores=256), **kw)
-    return tuple(x.numpy() for x in tengine.search_core(dev, torch.from_numpy(queries), None, ispec=ispec, **kw))
+    return tuple(x.numpy() for x in tengine.search_impl(dev, torch.from_numpy(queries), None, ispec=ispec, **kw))
 
 
 def assert_codes_match(flat, codes_t, codes_j, centroids):

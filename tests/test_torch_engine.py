@@ -103,7 +103,7 @@ def test_exhaustive_matches_brute_force(index):
     )
     pt, st = (
         x.numpy()
-        for x in tengine.search_core(index["dev_t"], torch.from_numpy(q), None, ispec=spec_t, **kw)
+        for x in tengine.search_impl(index["dev_t"], torch.from_numpy(q), None, ispec=spec_t, **kw)
     )
     bi, bs = _brute_force(index, q, 10)
     assert_same_topk(pt, st, bi, bs)
@@ -152,7 +152,7 @@ def test_budgeted_rank_admit_pool_matches_jax(index, monkeypatch):
 
     monkeypatch.setattr(tengine, "_run_heads", record_heads)
     monkeypatch.setattr(tengine, "_top_k", record_top_k)
-    pt = tengine.candidates_core(
+    pt = tengine.candidates_impl(
         index["dev_t"], torch.from_numpy(q), None, ispec=index["spec_t"], **kw
     ).numpy()
     assert pt.shape == pj.shape
@@ -182,7 +182,7 @@ def test_budgeted_search_matches_jax(index, use_kernels):
     )
     pt, st = (
         x.numpy()
-        for x in tengine.search_core(
+        for x in tengine.search_impl(
             index["dev_tc"], torch.from_numpy(q), None, ispec=index["spec_t"],
             use_estimate_kernel=use_kernels, use_rerank_kernel=use_kernels, **kw,
         )
@@ -207,7 +207,7 @@ def test_explicit_modes_match_jax(index, mode):
     )
     pt, st, stt = (
         x.numpy()
-        for x in tengine.search_core(
+        for x in tengine.search_impl(
             index["dev_t"], torch.from_numpy(q), None, ispec=index["spec_t"],
             use_estimate_kernel=True, **kw,
         )
@@ -220,7 +220,7 @@ def test_stats_match_jax(index):
     kw = dict(_budgeted_kwargs(index, 128), top_k=10, want_tokens=False, with_stats=True)
     q = index["queries"]
     *_, stj = jengine.search_core(index["dev_j"], jnp.asarray(q), None, ispec=index["spec_j"], **kw)
-    *_, stt = tengine.search_core(
+    *_, stt = tengine.search_impl(
         index["dev_t"], torch.from_numpy(q), None, ispec=index["spec_t"], **kw
     )
     np.testing.assert_array_equal(stt.numpy(), np.asarray(stj))
@@ -232,7 +232,7 @@ def test_unported_options_raise(index):
     estimator raises ValueError."""
     q = torch.from_numpy(index["queries"])
     base = dict(ispec=index["spec_t"], top_k=5, n_ivf_probe=4, n_full_scores=64)
-    pt, st = tengine.search_core(index["dev_t"], q, None, approx_mode="tokens", **base)
+    pt, st = tengine.search_impl(index["dev_t"], q, None, approx_mode="tokens", **base)
     pj, sj = jengine.search_core(
         index["dev_j"], jnp.asarray(index["queries"]), None, approx_mode="tokens",
         want_tokens=False, **dict(base, ispec=index["spec_j"]),
@@ -240,12 +240,12 @@ def test_unported_options_raise(index):
     assert_same_topk(pt.numpy(), st.numpy(), np.asarray(pj), np.asarray(sj))
     assert pt[-4:, 0].tolist() == [3, 77, 151, 299]
     with pytest.raises(ValueError):
-        tengine.search_core(index["dev_t"], q, None, approx_mode="token", **base)
-    _, _, tok, lens = tengine.search_core(index["dev_t"], q, None, want_tokens=True, **base)
+        tengine.search_impl(index["dev_t"], q, None, approx_mode="token", **base)
+    _, _, tok, lens = tengine.search_impl(index["dev_t"], q, None, want_tokens=True, **base)
     assert tok.shape == (q.shape[0], 5, index["spec_t"].doc_cap, q.shape[1])
     assert lens.shape == (q.shape[0], 5) and (lens > 0).all()
     sub = torch.arange(40, dtype=torch.int32).reshape(10, 4)
-    ids, _ = tengine.search_core(index["dev_t"], q, sub, **base)
+    ids, _ = tengine.search_impl(index["dev_t"], q, sub, **base)
     assert all(set(r[r >= 0].tolist()) <= set(s.tolist()) for r, s in zip(ids, sub))
 
 

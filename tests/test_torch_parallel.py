@@ -110,7 +110,7 @@ def t_search(dev, ispec, queries, subset=None, **kw):
     kw = dict(dict(top_k=5, n_ivf_probe=8, n_full_scores=4096, want_tokens=False), **kw)
     sub = None if subset is None else torch.from_numpy(subset)
     with torch.inference_mode():
-        return np_out(tengine.search_core(dev, torch.from_numpy(np.asarray(queries)), sub, ispec=ispec, **kw))
+        return np_out(tengine.search_impl(dev, torch.from_numpy(np.asarray(queries)), sub, ispec=ispec, **kw))
 
 
 def test_build_sharded_index_matches_jax_leaves(shared):

@@ -417,13 +417,11 @@ def test_low_memory_search_equals_the_padded_composition(index_dir, monkeypatch)
 
     def both(loaded, tile_dev, p2, stats, rows, **kw):
         pools.append(p2.numpy())
-        codes, res, valid = searcher.host_gather_rows(loaded, p2.numpy())
+        padded = searcher.host_gather_rows(loaded, p2.numpy())
         exact = engine.rerank_rows(
-            codes, res, valid, p2, loaded.dev.centroids, loaded.dev.bucket_weights, tile_dev,
-            nbits=loaded.ispec.nbits, sentinel_pid=loaded.ispec.sentinel_pid,
-            mem_budget=kw["mem_budget"],
+            loaded.dev, padded, p2, tile_dev, ispec=loaded.ispec, mem_budget=kw["mem_budget"]
         )
-        prior.append(engine.final_topk_core(exact, p2, kw["top_k"]))
+        prior.append(engine.final_topk(exact, p2, kw["top_k"]))
         return finish(loaded, tile_dev, p2, stats, rows, **kw)
 
     monkeypatch.setattr(searcher, "_lm_finish", both)

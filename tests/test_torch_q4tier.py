@@ -251,7 +251,7 @@ def test_carry_jax_q4_and_low_memory_indexes(tier):
     kw = dict(top_k=5, n_ivf_probe=16, n_full_scores=128, want_tokens=False)
     pj, sj = (np.asarray(x) for x in jengine.search_core(
         j_dev, jnp.asarray(q), None, ispec=tier["jax"][1].ispec, **kw))
-    pt, st = (x.numpy() for x in tengine.search_core(
+    pt, st = (x.numpy() for x in tengine.search_impl(
         t_dev, torch.from_numpy(q), None, ispec=t_spec, **kw))
     _results_match(
         [list(zip(a.tolist(), b.tolist())) for a, b in zip(pt, st)],

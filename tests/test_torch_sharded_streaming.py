@@ -83,7 +83,7 @@ def test_sharded_matches_single_device():
     sp, ss = np_out(parallel.sharded_search(sharded, queries, top_k=10, n_ivf_probe=k,
                                             n_full_scores=2 * n))
     with torch.inference_mode():
-        gp, gs = np_out(tengine.search_core(
+        gp, gs = np_out(tengine.search_impl(
             dev, torch.from_numpy(queries), None, ispec=ispec, top_k=10, n_ivf_probe=k,
             n_full_scores=2 * n))
     np.testing.assert_array_equal(sp, gp)

@@ -153,7 +153,7 @@ def test_candidates_with_subset_match_jax(index, mode, monkeypatch):
     monkeypatch.setattr(tengine, "_top_k", record_top_k)
     pt, stt = (
         x.numpy()
-        for x in tengine.candidates_core(
+        for x in tengine.candidates_impl(
             index["dev_t"], torch.from_numpy(q), torch.from_numpy(sub),
             ispec=index["spec_t"], with_stats=True, use_estimate_kernel=True, **kw,
         )
@@ -184,7 +184,7 @@ def test_search_with_subset_matches_jax(index, cache, size):
     )
     pt, st, stt = (
         x.numpy()
-        for x in tengine.search_core(
+        for x in tengine.search_impl(
             dev_t, torch.from_numpy(q), torch.from_numpy(sub), ispec=index["spec_t"],
             use_estimate_kernel=True, use_rerank_kernel=True, **kw,
         )
@@ -202,7 +202,7 @@ def test_direct_pool_is_subset_brute_force(index):
     spec, dev = index["spec_t"], index["dev_tc"]
     sub = _subsets(index, 30, seed=9, with_planted=False)
     q = torch.from_numpy(index["queries"])
-    ids, scores = tengine.search_core(
+    ids, scores = tengine.search_impl(
         dev, q, torch.from_numpy(sub), ispec=spec, top_k=5, n_ivf_probe=8, n_full_scores=64,
     )
     emb = dev.emb_cache.double()
@@ -226,7 +226,7 @@ def test_direct_pool_unsorted_duplicates_and_out_of_range(index):
     n = index["spec"].n_docs
     messy = np.asarray([[9, 3, 3, 41, -4, 7, 9, n + 3], [60, 2, 2, 2, 7, 1, 0, n]], np.int32)
     kw = dict(top_k=5, n_ivf_probe=8, n_full_scores=64, want_tokens=False)
-    pt, st = tengine.search_core(
+    pt, st = tengine.search_impl(
         index["dev_tc"], torch.from_numpy(q), torch.from_numpy(messy), ispec=index["spec_t"], **kw
     )
     pj, sj = jengine.search_core(
@@ -324,13 +324,13 @@ def test_low_memory_subset_takes_the_cascade(low_memory, monkeypatch):
     """Even a subset within the direct pool's size goes through the cascade
     in low_memory, as in the JAX package."""
     calls = []
-    real = tsearcher.candidates_core
+    real = tsearcher.candidates_impl
 
     def record(*args, **kwargs):
         calls.append(args[2].shape)
         return real(*args, **kwargs)
 
-    monkeypatch.setattr(tsearcher, "candidates_core", record)
+    monkeypatch.setattr(tsearcher, "candidates_impl", record)
     small = [s[:20] for s in low_memory["subsets"]]
     kw = dict(top_k=5, n_full_scores=512, n_ivf_probe=16, show_progress=False)
     got = tsearcher.search_on_device(low_memory["torch"], low_memory["queries"], subsets=small, **kw)
