@@ -8,7 +8,12 @@ Phases, each of which raises (non-zero exit) on failure:
 0. Require CUDA; print the card's name and power limit (nvidia-smi).
 1. Build the CUDA kernels from ``fast_plaid_tpu_torch/csrc`` with nvcc.
 2. Hold each kernel against its plain PyTorch version on the card, at the
-   main paths' shapes and at edge cases, and time both: the stage-4
+   main paths' shapes and at edge cases, and time both: the stages 1-2
+   probe (8,192 query tokens x 32,768 cells, k 8, timed beside
+   ``torch.matmul`` + ``torch.topk``; ragged N, Kp 33,000, k_real < Kp,
+   all-zero rows, k 1 and 32, k_real below k; scores within one bf16 ulp,
+   the same cells in the same order wherever cells and scores agree), the
+   stage-4
    estimate (empty rows, one run spanning a row, ragged widths, a 256 KB
    table at W 12,152), the per-query rerank (empty rows, sentinel and
    out-of-range pids), the q4 rerank (B 256, R 2048, caph 80; lens 0,
@@ -28,13 +33,17 @@ Phases, each of which raises (non-zero exit) on failure:
    (unit-norm tokens, lengths uniform in [80, 160], d=128, seeded; metadata
    ``cat``, ``day``, ``title`` for every document), then ``.search`` of
    random queries plus 64 planted probes (verbatim 32-token prefixes of
-   documents). Stage 6 takes the dedup kernel where ``dedup_viable`` holds
-   (it does at this shape); the estimate and dedup launch counters must
-   rise, planted hit@1 must be 1.0, and the same tiles run through the
-   engine with the plain versions must give the same top-10 except for
-   ties. The kernels are compared once more on the inputs this path handed
-   them. 3b repeats the search with ``FASTPLAID_RERANK_DEDUP=0``, the stage
-   6 that corpora past the gate take, so the per-query kernel runs.
+   documents). Stages 1-2 take the probe kernel (32,768 cells) and stage 6
+   the dedup kernel where ``dedup_viable`` holds (it does at this shape);
+   the probe, estimate and dedup launch counters must rise, planted hit@1
+   must be 1.0, and the same tiles run through the engine with the plain
+   versions must give the same top-10 except for ties. The kernels are
+   compared once more on the inputs this path handed them, and the probe
+   kernel against ``torch.topk`` over the plain table on every tile (the
+   same cells in the same order wherever cells and scores agree; the tiles
+   then searched through the table route too where any row differs). 3b
+   repeats the search with ``FASTPLAID_RERANK_DEDUP=0``, the stage 6 that
+   corpora past the gate take, so the per-query kernel runs.
 4. The default constructor, ``FastPlaid(index, device="cuda")`` (low_memory:
    residuals in host RAM, the q4 prefilter cache on the card), reopens the
    same index and searches the same queries: the estimate and q4 counters
@@ -288,6 +297,90 @@ def check_estimate(pid, own, tbl, name: str, timing: bool = False) -> dict:
     return rec
 
 
+def bf16_ulp(x) -> "torch.Tensor":
+    """One bf16 ulp above |x| (x finite), as float32."""
+    import torch
+
+    a = x.float().abs().to(torch.bfloat16)
+    return (a.view(torch.int16) + 1).view(torch.bfloat16).float() - a.float()
+
+
+def probe_near(table, k: int) -> "torch.Tensor":
+    """Rows of a masked probe table whose k-th and (k+1)-th scores lie within
+    one bf16 ulp (an exact tie included): there alone may the kernel's cell
+    set differ from the plain version's."""
+    import torch
+
+    top = torch.topk(table, k + 1, dim=-1).values
+    return (top[:, k - 1].float() - top[:, k].float()).abs() <= bf16_ulp(top[:, k - 1])
+
+
+def probe_diff(vals, cells, pv, pc) -> dict:
+    """Row masks of the kernel's probe (vals, cells) against the table
+    route's (pv, pc): ``agree`` (the same scores), ``same_set`` (the same
+    cells), ``same`` (the same cells in the same order); -inf slots left
+    out."""
+    import torch
+
+    fin = torch.isfinite(pv)
+    mine, theirs = torch.where(fin, cells, -1), torch.where(fin, pc.int(), -1)
+    return {"agree": (vals == pv).all(dim=-1),
+            "same_set": (torch.sort(mine, dim=-1).values
+                         == torch.sort(theirs, dim=-1).values).all(dim=-1),
+            "same": (mine == theirs).all(dim=-1)}
+
+
+def check_probe(q, cent, k_real: int, k: int, name: str, timing: bool = False) -> dict:
+    """The probe kernel against its plain version (``torch.topk`` over the
+    table): -inf patterns equal, scores within one bf16 ulp, the same cell
+    set but at a near-tie at the k-th place, and the same order (ties
+    included) wherever cells and scores agree; timed beside the plain
+    version and beside ``torch.matmul`` + ``torch.topk`` on bf16 inputs
+    (``library_ms``: a pair the port never calls)."""
+    import torch
+
+    from fast_plaid_tpu_torch.ops.probe_kernel import (
+        probe_table,
+        probe_topk,
+        probe_topk_plain,
+    )
+
+    vals, cells = probe_topk(q, cent, k_real, k)
+    pv, pc = probe_topk_plain(q, cent, k_real, k)
+    torch.cuda.synchronize()
+    err = max_err(vals, pv)
+    fin = torch.isfinite(pv)
+    beyond = int(((vals.float() - pv.float()).abs()[fin] > bf16_ulp(pv)[fin]).sum())
+    diff = probe_diff(vals, cells, pv, pc)
+    n, d = q.shape
+    rec = {"case": name, "shape": [n, cent.shape[0], d, k], "k_real": k_real,
+           "max_abs_err": err, "beyond_ulp": beyond,
+           "rows_other_scores": int((~diff["agree"]).sum()),
+           "rows_other_set": int((~diff["same_set"]).sum()),
+           "rows_other_cells": int((~diff["same"]).sum())}
+    if beyond:
+        raise AssertionError(f"probe_topk {name}: {beyond} scores beyond one bf16 ulp")
+    if bool((diff["agree"] & diff["same_set"] & ~diff["same"]).any()):
+        raise AssertionError(f"probe_topk {name}: the order differs where cells and scores agree")
+    if rec["rows_other_set"]:
+        _, table = probe_table(q, cent, k_real)
+        far = ~diff["same_set"] & ~probe_near(table, k) & fin[:, k - 1]
+        del table
+        if bool(far.any()):
+            raise AssertionError(f"probe_topk {name}: cell sets differ away from a near-tie")
+    if timing:
+        rec["ms"] = cuda_time_ms(lambda: probe_topk(q, cent, k_real, k), 20)
+        rec["plain_ms"] = cuda_time_ms(lambda: probe_topk_plain(q, cent, k_real, k), 5)
+        qb = q.to(torch.bfloat16)
+        rec["library_ms"] = cuda_time_ms(
+            lambda: torch.topk(torch.matmul(qb, cent.t()), k, dim=-1), 5)
+        nbytes = 4.0 * n * d + 2.0 * k_real * d + 6.0 * n * k
+        rec["bound_ms"], rec["bound_by"] = bound(nbytes, 2.0 * n * k_real * d, BF16_OPS)
+        rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
+    log(f"# probe {json.dumps(rec)}")
+    return rec
+
+
 def check_rerank(emb, pids, lens, qs, name: str, timing: bool = False) -> dict:
     import torch
 
@@ -409,6 +502,21 @@ def phase_kernels(dev: "torch.device", n_docs: int) -> None:
         return torch.sort(
             torch.randint(0, hi, (b, w), generator=g, device=dev, dtype=torch.int32), dim=-1
         ).values
+
+    # Probe (stages 1-2): the cells' shape (8,192 query tokens, 32,768 cells,
+    # D 128, k 8), then ragged N, Kp not a multiple of the tile, k_real < Kp,
+    # all-zero rows, k 1 and 32, k_real below k (a generator of its own, so
+    # the other kernels' inputs stay as they were).
+    gp = torch.Generator(device=dev).manual_seed(5)
+    qp = torch.randn((256 * Q_LEN, DIM), generator=gp, device=dev)
+    qp[::97] = 0.0
+    cp = torch.randn((32768, DIM), generator=gp, device=dev).to(torch.bfloat16)
+    check_probe(qp, cp, 32768, N_PROBE, "cells_shape", timing=True)
+    cp2 = torch.randn((33000, DIM), generator=gp, device=dev).to(torch.bfloat16)
+    for k in (1, 32):
+        check_probe(qp[:1000], cp2, 32900, k, f"ragged_k{k}")
+    check_probe(qp[:257], cp2, 20, 32, "k_real_below_k")
+    del qp, cp, cp2
 
     # Estimate: main-path shape (B 256, slot width ~24k, ~90 cells, Q 32).
     b, w, c, q = 256, 24064, 90, 32
@@ -616,6 +724,7 @@ class Counters:
 
     def __init__(self):
         from fast_plaid_tpu_torch.ops.estimate_kernel import segmented_estimate
+        from fast_plaid_tpu_torch.ops.probe_kernel import probe_topk
         from fast_plaid_tpu_torch.ops.rerank_dedup import maxsim_gather_scores_dedup
         from fast_plaid_tpu_torch.ops.rerank_kernel import (
             maxsim_gather_scores,
@@ -627,6 +736,7 @@ class Counters:
             "maxsim_gather_scores": maxsim_gather_scores,
             "maxsim_q4_gather_scores": maxsim_q4_gather_scores,
             "maxsim_gather_scores_dedup": maxsim_gather_scores_dedup,
+            "probe_topk": probe_topk,
         }
 
     def zero(self) -> None:
@@ -929,31 +1039,40 @@ def meta_row(i: int) -> dict:
 
 
 def probe_ties(dev, loaded, queries, kw) -> dict:
-    """The probe's tie order on the card: over every tile of these queries,
-    the query-token rows whose probed cell set from ``torch.topk`` differs
-    from a stable sort's. Where any does, every tile is searched again with
-    a stable probe and the top-10 compared."""
+    """The probe kernel on the card against ``torch.topk`` over the plain
+    table (the table route), over every tile of these queries: rows with an
+    exact tie inside the top k, rows whose scores differ (by one bf16 ulp at
+    most), and rows whose cells or their order differ (raises where cells
+    and scores agree but the order does not, or where the cell sets differ
+    away from a near-tie at the k-th place). Where any row differs, every tile is searched again
+    through the table route and the top-10 compared."""
     import torch
 
+    from fast_plaid_tpu_torch.ops.probe_kernel import probe_table, probe_topk
     from fast_plaid_tpu_torch.search import engine
 
-    def stable_topk(x, k):
-        vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
-        return vals[:, :k], idx[:, :k]
-
-    diffs = rows = ties = 0
+    k_real = loaded.ispec.n_partitions
+    diffs = rows = ties = other_scores = 0
     tiles = [torch.from_numpy(queries[s : s + 256].astype(np.float16)).to(dev)
              for s in range(0, len(queries), 256)]
     with torch.inference_mode():
         for tile in tiles:
-            _, ps = engine._probe_scores(loaded.dev, tile.float(), loaded.ispec.n_partitions)
-            flat = ps.reshape(-1, ps.shape[-1])
-            _, idx = engine._probe_topk(flat, N_PROBE)
-            vals_s, idx_s = stable_topk(flat, N_PROBE + 1)
-            same = (torch.sort(idx, dim=-1).values
-                    == torch.sort(idx_s[:, :N_PROBE], dim=-1).values).all(dim=-1)
-            diffs += int((~same).sum())
-            ties += int((vals_s[:, N_PROBE - 1] == vals_s[:, N_PROBE]).sum())
+            flat = tile.float().reshape(-1, tile.shape[-1])
+            _, ps = probe_table(flat, loaded.dev.centroids, k_real)
+            tv, ti = torch.topk(ps, N_PROBE, dim=-1)
+            near = probe_near(ps, N_PROBE)
+            del ps
+            kv, kc = probe_topk(flat, loaded.dev.centroids.to(torch.bfloat16), k_real,
+                                N_PROBE)
+            d = probe_diff(kv, kc, tv, ti)
+            if bool((d["agree"] & d["same_set"] & ~d["same"]).any()):
+                raise AssertionError("probe kernel: the order differs from torch.topk's "
+                                     "where cells and scores agree")
+            if bool((~d["same_set"] & ~near & torch.isfinite(tv[:, -1])).any()):
+                raise AssertionError("probe kernel: cell sets differ away from a near-tie")
+            diffs += int((~d["same"]).sum())
+            other_scores += int((~d["agree"]).sum())
+            ties += int((tv[:, 1:] == tv[:, :-1]).any(dim=-1).sum())
             rows += flat.shape[0]
     moved = 0
     if diffs:
@@ -961,19 +1080,20 @@ def probe_ties(dev, loaded, queries, kw) -> dict:
             for tile in tiles:
                 a = engine.search_impl(loaded.dev, tile, None, use_estimate_kernel=True,
                                        use_rerank_kernel=True, **kw)
-                real = engine._probe_topk
-                engine._probe_topk = stable_topk
+                real = engine._fused_probe
+                engine._fused_probe = lambda *args: False
                 try:
                     b = engine.search_impl(loaded.dev, tile, None, use_estimate_kernel=True,
                                            use_rerank_kernel=True, **kw)
                 finally:
-                    engine._probe_topk = real
+                    engine._fused_probe = real
                 moved += int((a[0] != b[0]).any(dim=-1).sum())
-    log(f"# [probe ties] {rows} query-token rows (bf16 table, Kp "
-        f"{loaded.dev.centroids.shape[0]}): {ties} with the {N_PROBE}-th and "
-        f"{N_PROBE + 1}-th scores tied, {diffs} whose torch.topk cell set differs from a "
-        f"stable sort's; queries whose top-{TOP_K} moves under a stable probe: {moved}")
-    return {"rows": rows, "ties": ties, "diffs": diffs, "top10_moved": moved}
+    log(f"# [probe ties] {rows} query-token rows (Kp {loaded.dev.centroids.shape[0]}): "
+        f"{ties} with an exact tie inside the top {N_PROBE}; {other_scores} whose kernel "
+        f"scores differ by an ulp, {diffs} whose cells differ from torch.topk's; queries "
+        f"whose top-{TOP_K} moves under the table route: {moved}")
+    return {"rows": rows, "ties": ties, "other_scores": other_scores, "diffs": diffs,
+            "top10_moved": moved}
 
 
 def phase_tokens(dev, fp, loaded, queries, n_queries, probe_pids, counters, cells_tile_ms,
@@ -1835,14 +1955,14 @@ def phase_resident(dev, index_dir, docs, queries, n_queries, probe_pids, counter
     if not viable:
         raise AssertionError("dedup_viable does not hold at this shape")
     res = api_search(fp, queries, counters, n_queries, probe_pids, "resident",
-                     ("segmented_estimate", "maxsim_gather_scores_dedup"))
+                     ("probe_topk", "segmented_estimate", "maxsim_gather_scores_dedup"))
 
     # The same tiles through the engine: kernels vs plain versions.
     kw = engine_kwargs(loaded, fp.mem_budget)
     worst = 0.0
     with Recorder(engine, "segmented_estimate") as est_rec, Recorder(
         engine, "maxsim_gather_scores_dedup"
-    ) as dd_rec:
+    ) as dd_rec, Recorder(engine, "probe_topk") as pr_rec:
         for t_start in (0, len(queries) - 256):
             tile = torch.from_numpy(queries[t_start : t_start + 256].astype(np.float16)).to(dev)
             with torch.inference_mode():
@@ -1850,7 +1970,7 @@ def phase_resident(dev, index_dir, docs, queries, n_queries, probe_pids, counter
                     loaded.dev, tile, None, use_estimate_kernel=True,
                     use_rerank_kernel=True, **kw)
                 if t_start == 0:
-                    est_args, dd_args = est_rec.args, dd_rec.args
+                    est_args, dd_args, pr_args = est_rec.args, dd_rec.args, pr_rec.args
                 p_ids, p_sc = engine.search_impl(
                     loaded.dev, tile, None, use_estimate_kernel=False,
                     use_rerank_kernel=False, **kw)
@@ -1871,6 +1991,7 @@ def phase_resident(dev, index_dir, docs, queries, n_queries, probe_pids, counter
                                use_rerank_kernel=True, **kw)
 
     res["tile_ms"] = tile_latency(run_tile, "resident")
+    res["probe"] = check_probe(*pr_args, "main_path_inputs", timing=True)
     res["est"] = check_estimate(*est_args, "main_path_inputs", timing=True)
     res["dedup"] = check_dedup(*dd_args, "main_path_inputs", timing=True)
     res["rr"] = check_rerank(*dd_args, "main_path_inputs", timing=True)
@@ -1915,7 +2036,7 @@ def phase_low_memory(dev, index_dir, queries, n_queries, probe_pids, counters, r
     log(f"# [low_memory] opened in {load_s:.2f} s: residuals in host RAM, emb_q4 "
         f"{tuple(d.emb_q4.shape)} {d.emb_q4.dtype} on {d.emb_q4.device}")
     res = api_search(fp, queries, counters, n_queries, probe_pids, "low_memory",
-                     ("segmented_estimate", "maxsim_q4_gather_scores"))
+                     ("probe_topk", "segmented_estimate", "maxsim_q4_gather_scores"))
     agree = float(np.mean([len(set(a) & set(b)) / TOP_K
                            for a, b in zip(res["ids"], resident_ids)]))
     log(f"# [low_memory] top-{TOP_K} overlap with the resident path: {agree:.4f} "
@@ -3358,13 +3479,18 @@ def main() -> None:
     print(json.dumps({"native": native_line}), flush=True)
 
     def kernel(name, source, replaces, launches, rec):
-        # library_ms is None for all four: no single PyTorch call gathers rows
-        # by index and reduces a length-masked (or run-segmented) max.
+        # library_ms is None for the four rerank and estimate kernels: no
+        # single PyTorch call gathers rows by index and reduces a length-masked
+        # (or run-segmented) max.
         return {"name": name, "route": "cuda", "source": f"fast_plaid_tpu_torch/csrc/{source}",
                 "replaces": replaces, "launches": launches,
                 **{k: rec[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
                 "library_ms": None}
 
+    probe_rec = kernel("probe_topk", "probe_kernel.cu",
+                       "none (an XLA dot and approx_max_k, fast_plaid_tpu/search/engine.py:372)",
+                       main_res["launches"]["probe_topk"], main_res["probe"])
+    probe_rec["library_ms"] = main_res["probe"]["library_ms"]  # torch.matmul + torch.topk
     kernels = [
         kernel("segmented_estimate", "estimate_kernel.cu",
                "fast_plaid_tpu/ops/estimate_kernel.py:46",
@@ -3378,6 +3504,7 @@ def main() -> None:
         kernel("maxsim_gather_scores_dedup", "rerank_dedup_kernel.cu",
                "fast_plaid_tpu/ops/rerank_dedup.py:153",
                main_res["launches"]["maxsim_gather_scores_dedup"], main_res["dedup"]),
+        probe_rec,
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(

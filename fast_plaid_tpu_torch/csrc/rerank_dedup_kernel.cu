@@ -45,15 +45,12 @@
 // entries with more requesters than a pass takes run several passes over
 // their rows. Q above 64 runs in chunks whose scores the wrapper adds.
 
-#include <cuda.h>
-
 #include "maxsim_stream.cuh"
 
 namespace {
 
 using namespace fp_stream;
 
-constexpr int kSwz = 64;       // bf16 columns of one 128-byte swizzle span
 constexpr int kWgCols = 128;   // query columns of a consumer warpgroup (wgmma N)
 constexpr int kMaxWgs = 2;
 constexpr int kHalfBytes = kTile * 128;  // one [64 rows, 64 columns] bf16 tile
@@ -117,55 +114,6 @@ bool choose_dlayout(int q, int D, DLayout* out) {
     }
   }
   return false;
-}
-
-// ---- TMA and wgmma ------------------------------------------------------------
-
-__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, int col, int row,
-                                            uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(row), "r"(smem_u32(bar))
-      : "memory");
-}
-
-// Descriptor of a K-major operand in 128-byte swizzle: rows of 128 bytes,
-// 8-row atoms 1024 bytes apart; a k16 step within the span adds 32 bytes.
-__device__ __forceinline__ uint64_t swz_desc(const void* p) {
-  const uint64_t a = smem_u32(p);
-  return ((a & 0x3FFFF) >> 4) | (uint64_t(1) << 16) | (uint64_t(1024 >> 4) << 32) |
-         (uint64_t(1) << 62);
-}
-
-// d (64 f32 a thread) = (scale_d ? d : 0) + A x B^T over k16: A [64, 16] and
-// B [128, 16], both K-major in shared memory behind 128-byte-swizzle descriptors.
-__device__ __forceinline__ void wgmma_m64n128k16(float* d, uint64_t desc_a, uint64_t desc_b,
-                                                 int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
-}
-
-// Pin the accumulators at this point of the program: the compiler does not
-// know that wgmma writes them asynchronously, so reads stay after the wait.
-__device__ __forceinline__ void fence_acc(float* d) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 __device__ __forceinline__ void wg_bar(int id) {
@@ -396,18 +344,6 @@ maxsim_dedup_kernel(const __grid_constant__ CUtensorMap tm_emb,
       }
     });
   }
-}
-
-// A 2D [rows, cols] bf16 tensor map with [box_rows, 64] boxes, 128-byte swizzle.
-bool make_map(CUtensorMap* m, const void* base, long long rows, int cols, int box_rows) {
-  cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
-  cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 2};
-  cuuint32_t box[2] = {static_cast<cuuint32_t>(kSwz), static_cast<cuuint32_t>(box_rows)};
-  cuuint32_t elem[2] = {1, 1};
-  return cuTensorMapEncodeTiled(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base),
-                                dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int KH, bool WIDE>

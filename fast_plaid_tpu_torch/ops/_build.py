@@ -63,6 +63,9 @@ _SIGNATURES = {
         _I,
     ),
     "fp_maxsim_dedup_smem_bytes": ([_I, _I], ctypes.c_longlong),  # (D, Q)
+    # (queries, N, D, centroids, Kp, k_real, k, scratch, scores, cells, stream)
+    "fp_probe_topk": ([_P, _I, _I, _P, _I, _I, _I, _P, _P, _P, _P], _I),
+    "fp_probe_scratch_bytes": ([_I, _I, _I, _I], ctypes.c_longlong),  # (N, D, k_real, k)
 }
 
 

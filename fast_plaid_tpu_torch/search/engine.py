@@ -5,7 +5,8 @@ Port of ``fast_plaid_tpu/search/engine.py``: the same static-shape cascade
 ``torch.device``. Stages:
 
   1. query-centroid scores
-  2. IVF probe (exact top-k per query token)
+  2. IVF probe (exact top-k per query token; stages 1-2 are one kernel,
+     ``ops/probe_kernel.py``, where ``_fused_probe`` holds)
   3. candidates from whole cells, as 128-aligned IVF row windows
   4. per-slot approximate estimates (``ops/estimate_kernel.py``), or with
      ``approx_mode="tokens"`` the reference's token-level estimates
@@ -42,10 +43,14 @@ functions.
 
 Tie order follows the JAX package on its CPU backend: cell orderings and the
 stage-5 and stage-7 top-k use stable sorts, so equal scores keep the lower
-index, as ``jnp.argsort`` and ``lax.top_k`` do. The stage-2 probe uses
-``torch.topk``: the reference's probe is ``approx_max_k``, approximate on
-its accelerator, and an exact probe differs from the CPU reference only
-where two probe scores tie exactly.
+index, as ``jnp.argsort`` and ``lax.top_k`` do. The reference's stage-2
+probe is ``approx_max_k``, approximate on its accelerator; the port's is
+exact. On a GPU with 32k cells or more it is the probe kernel
+(``ops/probe_kernel.py``: no score table; exact ties in ``torch.topk``'s
+order, since rank admission reads each cell's probe rank) unless the table
+is needed (``tokens``, a subset); otherwise ``torch.topk`` over the table,
+which differs from the CPU reference only where two probe scores tie
+exactly. Counters ``probe.fused`` / ``probe.table`` say which ran.
 """
 
 from __future__ import annotations
@@ -66,6 +71,8 @@ from fast_plaid_tpu_torch.ops.estimate_kernel import (
 )
 from fast_plaid_tpu_torch.ops.maxsim import NEG_INF as MAXSIM_NEG
 from fast_plaid_tpu_torch.ops.maxsim import maxsim_reduce
+from fast_plaid_tpu_torch.ops.probe_kernel import BF16_FROM, probe_table, probe_topk
+from fast_plaid_tpu_torch.ops.probe_kernel import MAX_K as PROBE_MAX_K
 from fast_plaid_tpu_torch.ops.q4cache import score_q4
 from fast_plaid_tpu_torch.ops.rerank_dedup import (
     dedup_viable,
@@ -253,29 +260,22 @@ def _count_pool(p2: torch.Tensor, sent_pid: int) -> None:
         tracing.count_device("rerank.distinct_rows", head & (s != sent_pid))
 
 
-def _probe_scores(dev: DeviceIndex, queries: torch.Tensor, k_real: int):
-    """Stages 1-2's scores: ([B, Q, Kp] query-centroid scores, the same with
-    padding cells and zero-padded query tokens at -inf). From 32k cells on
-    the table is bf16 and its inputs are bf16 (float32 accumulation)."""
-    b, q, d = queries.shape
-    kp = dev.centroids.shape[0]
-    flat_q = queries.reshape(b * q, d)
-    if kp >= 32768:
-        scores_qc = codec.bf16_matmul(flat_q, dev.centroids.t()).to(torch.bfloat16)
-    else:
-        scores_qc = torch.matmul(flat_q, dev.centroids.t())
-    scores_qc = scores_qc.reshape(b, q, kp)
-    tok_ok = torch.sum(torch.abs(queries), dim=-1) > 0  # [B, Q]
-    cell_valid = torch.arange(kp, device=queries.device) < k_real
-    probe_scores = torch.where(cell_valid[None, None, :] & tok_ok[..., None], scores_qc, NEG)
-    return scores_qc, probe_scores
-
-
-def _probe_topk(scores: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """The IVF probe: the k best cells of each row, by ``torch.topk``. Its
-    order among exactly tied scores is unspecified on a GPU; the probed
-    set differs from a stable sort's only at a tie with the k-th score."""
-    return torch.topk(scores, k, dim=-1)
+def _fused_probe(
+    device: torch.device, kp: int, d: int, approx_mode: str, subset, probe: int
+) -> bool:
+    """Whether stages 1-2 run as the probe kernel (``probe_topk``) rather
+    than the score table (``probe_table`` + ``torch.topk``): on a GPU, in
+    the bf16-table regime, where nothing but the top-k reads the table (not
+    ``tokens``, no subset mask) and the shape fits the kernel."""
+    return (
+        device.type == "cuda"
+        and kp >= BF16_FROM
+        and approx_mode != "tokens"
+        and subset is None
+        and probe <= PROBE_MAX_K
+        and d % 16 == 0
+        and 16 <= d <= 256
+    )
 
 
 def candidates_impl(
@@ -311,22 +311,40 @@ def candidates_impl(
     with tracing.span("engine.probe"):
         queries = queries.to(torch.float32)
         device = queries.device
-        b, q, _ = queries.shape
+        b, q, d = queries.shape
         kp = dev.centroids.shape[0]
         k_real = ispec.n_partitions
         cell_cap = ispec.cell_cap
         sent_pid = ispec.sentinel_pid
 
-        scores_qc, probe_scores = _probe_scores(dev, queries, k_real)
-        if subset is not None:
-            # Chunk of subset documents per scatter: the int64 index tensor
-            # (8 B a token), the gathered int32 codes and the mask (~24 B a
-            # token in all) stay within mem_budget.
-            chunk = max(8, min(subset.shape[1], mem_budget // (24 * b * ispec.doc_cap)))
-            allowed = _allowed_cells_mask(dev, subset, ispec, kp, chunk)
-            probe_scores = torch.where(allowed[:, None, :], probe_scores, NEG)
         probe = min(n_ivf_probe, kp)
-        top_cell_scores, cells = _probe_topk(probe_scores.reshape(b * q, kp), probe)
+        flat_q = queries.reshape(b * q, d)
+        scores_qc = None  # the [B, Q, Kp] table, where it is made
+        if _fused_probe(device, kp, d, approx_mode, subset, probe):
+            tracing.count("probe.fused", 1)
+            # Cast a call (8 MB at 32k x 128, a few us): a copy kept beside
+            # the float32 centroids would raise every window's peak memory.
+            cent = dev.centroids.to(torch.bfloat16)
+            top_cell_scores, cells = probe_topk(flat_q, cent, k_real, probe)
+        else:
+            tracing.count("probe.table", 1)
+            scores_qc, probe_scores = probe_table(flat_q, dev.centroids, k_real)
+            scores_qc = scores_qc.reshape(b, q, kp)
+            probe_scores = probe_scores.reshape(b, q, kp)
+            if subset is not None:
+                # Chunk of subset documents per scatter: the int64 index tensor
+                # (8 B a token), the gathered int32 codes and the mask (~24 B a
+                # token in all) stay within mem_budget.
+                chunk = max(
+                    8, min(subset.shape[1], mem_budget // (24 * b * ispec.doc_cap))
+                )
+                allowed = _allowed_cells_mask(dev, subset, ispec, kp, chunk)
+                probe_scores = torch.where(allowed[:, None, :], probe_scores, NEG)
+            # torch.topk orders exact ties as it likes on a GPU; the probed
+            # set differs from a stable sort's only at a tie with the k-th.
+            top_cell_scores, cells = torch.topk(
+                probe_scores.reshape(b * q, kp), probe, dim=-1
+            )
         top_cell_scores = top_cell_scores.reshape(b, q, probe)
         cells = cells.to(torch.int32).reshape(b, q, probe)
         cells = torch.where(top_cell_scores > NEG, cells, kp)  # kp = empty cell

@@ -22,6 +22,11 @@ from fast_plaid_tpu_torch.ops.estimate_kernel import (
     segmented_estimate,
     segmented_estimate_plain,
 )
+from fast_plaid_tpu_torch.ops.probe_kernel import (
+    probe_table,
+    probe_topk,
+    probe_topk_plain,
+)
 from fast_plaid_tpu_torch.ops.rerank_dedup import (
     maxsim_gather_scores_dedup,
     maxsim_gather_scores_dedup_plain,
@@ -449,19 +454,82 @@ def test_train_codec_device_past_quantile_limit(cuda):
 
 
 def test_probe_topk_differs_from_a_stable_sort_only_at_ties(cuda):
-    """The probe's ``torch.topk`` over a bf16 [B*Q, 32,768] table (exact ties
-    are common in bf16): its cell set equals a stable sort's top k wherever
-    the k-th and (k+1)-th scores differ."""
-    from fast_plaid_tpu_torch.search import engine
-
+    """The plain probe's ``torch.topk`` over a bf16 [B*Q, 32,768] table
+    (exact ties are common in bf16): its cell set equals a stable sort's top
+    k wherever the k-th and (k+1)-th scores differ."""
     g = torch.Generator(device=cuda).manual_seed(8)
-    scores = torch.randn((256 * 32, 32_768), generator=g, device=cuda).to(torch.bfloat16)
+    q = torch.randn((256 * 32, 128), generator=g, device=cuda)
+    c = torch.randn((32_768, 128), generator=g, device=cuda).to(torch.bfloat16)
     k = 8
-    _, idx = engine._probe_topk(scores, k)
+    _, idx = probe_topk_plain(q, c, 32_768, k)
+    _, scores = probe_table(q, c, 32_768)
     vals_s, idx_s = torch.sort(scores, dim=-1, descending=True, stable=True)
     same = (torch.sort(idx, dim=-1).values == torch.sort(idx_s[:, :k], dim=-1).values).all(dim=-1)
     tie = vals_s[:, k - 1] == vals_s[:, k]
     assert bool((same | tie).all())
+
+
+def _bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp above |x| (x finite), as float32."""
+    a = x.float().abs().to(torch.bfloat16)
+    up = (a.view(torch.int16) + 1).view(torch.bfloat16)
+    return up.float() - a.float()
+
+
+@pytest.mark.parametrize(
+    "n,kp,k_real,d,k",
+    [(8192, 32_768, 32_768, 128, 8), (1000, 33_000, 32_900, 128, 8),
+     (1000, 33_000, 32_900, 128, 1), (1000, 33_000, 32_900, 128, 32),
+     (300, 40_000, 39_990, 96, 16), (257, 32_768, 20, 64, 32), (130, 70_000, 70_000, 256, 8),
+     (200, 32_768, 32_768, 32, 8)],
+    ids=["cells_shape", "ragged_k8", "ragged_k1", "ragged_k32", "d96_k16", "k_real_below_k",
+         "two_spans_d256", "d32"],
+)
+def test_probe_kernel_matches_plain(cuda, n, kp, k_real, d, k):
+    """The probe kernel against ``probe_topk_plain`` (``torch.topk`` over the
+    table) on bf16 centroids, with all-zero query rows and exact ties: -inf
+    where the plain version has it (with the cell Kp), scores within one bf16
+    ulp (float32 sums in another order), descending, and wherever the two
+    give the same scores, the same cells in the same order, ties included."""
+    g = torch.Generator(device=cuda).manual_seed(n + kp + k)
+    q = torch.randn((n, d), generator=g, device=cuda)
+    q[5] = 0.0
+    q[n - 1] = 0.0
+    c = torch.randn((kp, d), generator=g, device=cuda)
+    c[k_real:] = 0.0
+    c[200:230] = c[3]  # exact ties
+    cb = c.to(torch.bfloat16)
+    before = probe_topk.launches
+    vals, cells = probe_topk(q, cb, k_real, k)
+    torch.cuda.synchronize()
+    assert probe_topk.launches == before + 1
+    assert vals.dtype == torch.bfloat16 and cells.dtype == torch.int32
+    pv, pc = probe_topk_plain(q, cb, k_real, k)
+    _, table = probe_table(q, cb, k_real)
+    fin = torch.isfinite(pv)
+    assert torch.equal(torch.isfinite(vals), fin)
+    assert bool(torch.isneginf(vals[~fin]).all()) and bool((cells[~fin] == kp).all())
+    ulp = _bf16_ulp(pv)
+    assert bool(((vals.float() - pv.float()).abs()[fin] <= ulp[fin]).all())
+    assert bool((cells[fin] >= 0).all()) and bool((cells[fin] < k_real).all())
+    # Each cell's plain score is within an ulp of the kernel's.
+    got = torch.gather(table, 1, cells.clamp(max=kp - 1).long())
+    assert bool(((got.float() - vals.float()).abs()[fin] <= ulp[fin]).all())
+    v = vals.float()
+    assert bool((v[:, 1:] <= v[:, :-1])[fin[:, 1:] & fin[:, :-1]].all())
+    # The same cell set except at a near-tie at the k-th place; with the same
+    # set and the same scores, the same order (torch.topk's, ties included).
+    mine = torch.where(fin, cells, -1)
+    theirs = torch.where(fin, pc, -1)
+    same_set = (torch.sort(mine, dim=-1).values == torch.sort(theirs, dim=-1).values).all(-1)
+    nxt = torch.topk(table, min(k + 1, kp), dim=-1).values.float()
+    near = (nxt[:, k - 1] - nxt[:, -1]).abs() <= _bf16_ulp(nxt[:, k - 1])
+    assert bool((same_set | near | ~fin[:, k - 1]).all())
+    agree = same_set & (vals == pv).all(dim=-1)
+    same = (mine == theirs).all(dim=-1)
+    assert bool((same | ~agree).all())
+    if k_real >= k:
+        assert float(same.float().mean()) > 0.99
 
 
 def test_exact_truth_on_the_card_matches_numpy(cuda):

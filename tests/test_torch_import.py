@@ -14,7 +14,8 @@ names = [m.name for m in pkgutil.walk_packages(
     fast_plaid_tpu_torch.__path__, "fast_plaid_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
-for name in ("ops.q4cache", "ops.rerank_dedup", "ops.rerank_kernel", "search.load",
+for name in ("ops.q4cache", "ops.rerank_dedup", "ops.rerank_kernel", "ops.probe_kernel",
+             "search.load",
              "filtering", "filtering.filtering", "index.appender", "index.deleter",
              "search.update", "evaluation.evaluation", "evaluation.synthetic",
              "serving.batcher", "serving.server", "serving.__main__", "utils.tracing",
