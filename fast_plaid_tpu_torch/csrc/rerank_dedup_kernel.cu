@@ -35,15 +35,19 @@
 // block into a query area ([rows = requesters x Q rounded to 8, D], up to 128
 // rows per warpgroup; double-buffered where it fits) and then the entry's
 // first len rows as [64, D] tiles into a ring of stages (OOB rows zero-filled,
-// rows past len masked). Each consumer warpgroup runs wgmma m64n128k16 over
-// the tile against its 128 query columns (4 requesters at Q 32), keeps the
-// length-masked running max in registers, and at the entry's end takes the
-// max over the four warps' rows through a small shared scratch and sums each
-// requester's Q columns. Past D 384 the query area does not fit a block, and
-// the pass's query rows stream with each row tile instead, 128 columns at a
-// time (`WIDE`). Shared memory depends on D and Q only, never on doc_cap;
-// entries with more requesters than a pass takes run several passes over
-// their rows. Q above 64 runs in chunks whose scores the wrapper adds.
+// rows past len masked). A D that is not a multiple of 64 takes ceil(D / 64)
+// halves, the last one partly past the tensor's columns: TMA fills those
+// columns with zeros in the query area and in every row tile alike, and their
+// products add exact zeros to the float32 sums. Each consumer warpgroup runs
+// wgmma m64n128k16 over the tile against its 128 query columns (4 requesters
+// at Q 32), keeps the length-masked running max in registers, and at the
+// entry's end takes the max over the four warps' rows through a small shared
+// scratch and sums each requester's Q columns. Past D 384 the query area
+// does not fit a block, and the pass's query rows stream with each row tile
+// instead, 128 columns at a time (`WIDE`). Shared memory depends on D and Q
+// only, never on doc_cap; entries with more requesters than a pass takes run
+// several passes over their rows. Q above 64 runs in chunks whose scores
+// the wrapper adds.
 
 #include "maxsim_stream.cuh"
 
@@ -66,10 +70,10 @@ struct DLayout {
   int q_bufs;       // query areas (0 when wide)
   int wide;         // queries stream with the row tiles, chunk by chunk
   int kh;           // 64-column halves a stage holds
-  int chunks;       // stages per row tile (D / 64 / kh)
+  int chunks;       // stages per row tile (halves / kh)
   int qp;           // query columns a requester takes (Q rounded up to 8)
   int per_wg;       // requesters a warpgroup scores in one pass (kWgCols / qp)
-  int halves;       // D / 64
+  int halves;       // ceil(D / 64)
   int a_bytes;      // the row part of a stage: kh [64, 64] halves
   int stage_bytes;  // a_bytes, plus the query chunk when wide
   int q_half;       // one 64-column half of query rows: wgs * 128 rows * 128 B
@@ -85,7 +89,7 @@ DLayout make_dlayout(int wgs, int stages, int q_bufs, int wide, int q, int D) {
   l.wide = wide;
   l.qp = (q + 7) / 8 * 8;
   l.per_wg = kWgCols / l.qp;
-  l.halves = D / kSwz;
+  l.halves = (D + kSwz - 1) / kSwz;
   l.kh = wide ? (l.halves % 2 ? 1 : 2) : l.halves;
   l.chunks = l.halves / l.kh;
   l.q_half = wgs * kWgCols * 128;
@@ -105,7 +109,7 @@ bool choose_dlayout(int q, int D, DLayout* out) {
       {2, 5, 2, 0}, {2, 4, 2, 0}, {2, 3, 2, 0}, {2, 2, 2, 0}, {2, 4, 1, 0}, {2, 3, 1, 0},
       {2, 2, 1, 0}, {1, 4, 2, 0}, {1, 3, 2, 0}, {1, 2, 2, 0}, {1, 3, 1, 0}, {1, 2, 1, 0},
       {2, 3, 0, 1}, {2, 2, 0, 1}, {1, 3, 0, 1}, {1, 2, 0, 1}};
-  if (q < 1 || q > kMaxQ || D < kSwz || D % kSwz) return false;
+  if (q < 1 || q > kMaxQ || D < 16 || D % 16) return false;
   for (const auto& p : kPlans) {
     const DLayout l = make_dlayout(p[0], p[1], p[2], p[3], q, D);
     if (l.total <= kMaxSmem && (l.wide || l.halves <= 6)) {
@@ -370,7 +374,7 @@ int launch(const CUtensorMap& tm_emb, const CUtensorMap& tm_q, int n_rows, int d
 }  // namespace
 
 // Shared-memory bytes one block uses for D and Q (<= 64), or -1 if no plan
-// fits (D must be a multiple of 64; any such D has one). It does not depend
+// fits (D must be a multiple of 16; any such D has one). It does not depend
 // on doc_cap.
 extern "C" long long fp_maxsim_dedup_smem_bytes(int D, int Q) {
   DLayout L;
@@ -381,7 +385,7 @@ extern "C" long long fp_maxsim_dedup_smem_bytes(int D, int Q) {
 // int32 (the flat [B, R] pool); order: [n] int32, the pool's slots sorted by
 // pid; bounds: [E + 1] int32 entry spans over `order`; n_entries: one int32 on
 // the device (<= E); queries: [B * Q, D] bf16 with 1 <= Q <= 64; out: [n]
-// float32, written at every slot of a live entry. D a multiple of 64, pointers
+// float32, written at every slot of a live entry. D a multiple of 16, pointers
 // 16-byte aligned. Returns a CUDA error code (0 on success).
 extern "C" int fp_maxsim_dedup(const void* emb, int n_rows, int doc_cap, int D, const void* pids,
                                const void* lens, const void* order, const void* bounds,

@@ -19,8 +19,10 @@ most G requesters:
 
 The scores are those of ``maxsim_gather_scores`` up to the order of float32
 sums (bf16 inputs, float32 accumulation, length-masked token max, sum over
-query tokens). ``dedup_viable`` is the JAX package's static gate, unchanged,
-so both packages pick the same stage-6 kernel at every shape.
+query tokens). ``dedup_viable`` is the JAX package's static gate with the
+CUDA kernel's width (D a multiple of 16, where the JAX kernel takes
+multiples of 128), so both packages pick the same stage-6 kernel at every
+shape the JAX kernel takes.
 
 Both paths mark the grouping with the span ``rerank.group`` and add its live
 entries to the device counter ``rerank.entries`` (``utils/tracing.py``).
@@ -58,7 +60,7 @@ def dedup_viable(
 
     True when the worst-case entry count B*R//G + Np is at most half the
     slot count (at least 2x fewer row reads however the pools land) and the
-    shapes are legal (D a multiple of 128, Q a multiple of 16, all queries
+    shapes are legal (D a multiple of 16, Q a multiple of 16, all queries
     within 8 MB). ``FASTPLAID_RERANK_DEDUP=0`` disables, ``=1`` forces where
     the shape is legal, ``auto`` (the default) decides.
     """
@@ -66,7 +68,8 @@ def dedup_viable(
     if env == "0":
         return False
     legal = (
-        d % 128 == 0
+        d % 16 == 0
+        and d >= 16
         and nq % 16 == 0
         and nq >= 16
         and b * nq * d * 2 <= 8 * 1024 * 1024
@@ -212,8 +215,9 @@ def maxsim_gather_scores_dedup(
     Launches the CUDA kernel for CUDA tensors (counted in
     ``maxsim_gather_scores_dedup.launches``, once per chunk of 64 query
     tokens) and the plain version for CPU tensors. The kernel takes any
-    doc_cap, D a multiple of 64 whose query and row tiles fit a block (128,
-    256 and 384 do), and any Q; it writes each slot's score in place, so no
+    doc_cap, D a multiple of 16 (ceil(D / 64) column halves, the columns
+    past D zero-filled) whose query and row tiles fit a block (up to 1,024
+    does), and any Q; it writes each slot's score in place, so no
     entry table is gathered back.
     """
     if pids.device.type == "cpu":
@@ -243,9 +247,10 @@ def maxsim_gather_scores_dedup(
         if t.device != pids.device:
             msg = f"{name}: {label} is on {t.device}, not {pids.device}"
             raise ValueError(msg)
-    if d % 64 or nq < 1 or not 1 <= g <= 256 or np_rows < 1 or np_rows * doc_cap >= 2**31:
+    bad_shape = d % 16 or d < 16 or nq < 1 or not 1 <= g <= 256
+    if bad_shape or np_rows < 1 or np_rows * doc_cap >= 2**31:
         msg = (
-            f"{name}: the kernel takes D a multiple of 64, Q >= 1, 1 <= g <= 256 "
+            f"{name}: the kernel takes D a multiple of 16, Q >= 1, 1 <= g <= 256 "
             f"and Np * doc_cap < 2^31; got D={d}, Q={nq}, g={g}, Np={np_rows}, "
             f"doc_cap={doc_cap}"
         )

@@ -18,7 +18,8 @@ Port of ``fast_plaid_tpu/search/engine.py``: the same static-shape cascade
      pool where only the 4-bit cache is resident. A length-bucketed index
      reranks each bucket's share of the pool at the bucket's cap
      (``_rerank_bucketed``), through the same two kernels over the
-     bucket's cache. Every plain MaxSim runs in one chunk loop,
+     bucket's cache (counters ``rerank.dedup`` / ``rerank.gather``: which
+     of the two ran). Every plain MaxSim runs in one chunk loop,
      ``_chunked_maxsim``, whose callers say only where a chunk's rows come
      from.
   7. final top-k
@@ -326,6 +327,7 @@ def candidates_impl(
             # the float32 centroids would raise every window's peak memory.
             cent = dev.centroids.to(torch.bfloat16)
             top_cell_scores, cells = probe_topk(flat_q, cent, k_real, probe)
+            del cent
         else:
             tracing.count("probe.table", 1)
             scores_qc, probe_scores = probe_table(flat_q, dev.centroids, k_real)
@@ -367,6 +369,7 @@ def candidates_impl(
         # [B, C, Q] per-cell/query-token score table from the probed centroids.
         cent_sel = dev.centroids[torch.clamp(cells, 0, kp - 1).long()].to(torch.float32)
         tbl = torch.bmm(cent_sel, queries.transpose(1, 2))  # [B, C, Q]
+        del cent_sel
         # Order the deduped cells by descending probe score so truncation
         # drops the least promising cells first.
         cell_pri = torch.where(cells == kp, NEG, torch.amax(tbl, dim=-1))
@@ -510,6 +513,7 @@ def candidates_impl(
             torch.int32
         )  # [B, S]
         has = torch.any(own, dim=-1)
+        del own
         local = jj[None, :] - _take(ck_start, owner)
         off = _take(offs_s, owner) + local * w
         rem = _take(lens_s, owner) - local * w
@@ -518,6 +522,10 @@ def candidates_impl(
         valid = (iota_w[None, None, :] < rem[..., None]) & has[..., None]
         width = s_chunks * w
         pid = torch.where(valid, win, sent_pid).reshape(b, width)
+        # Each [B, width] buffer is dropped once the next step has read it:
+        # the tile's peak is the prune's sort over the slots, and the dead
+        # windows would otherwise sit under it (5 x 4 B a slot).
+        del win, valid
         if subset is not None:
             pid = _subset_filter(pid, subset, sent_pid)
         _count_live("candidates", pid, sent_pid)
@@ -527,9 +535,12 @@ def candidates_impl(
         # ---- 4. sort by pid carrying the owning cell; per-query-token
         # estimates from the [B, c_sel, Q] table, max-combined within runs.
         pid_s, own_s = _sort_pid_payload(pid, ownw, c_sel, sent_pid)
+        del pid, ownw
         cell_scores = _take(tbl, order_b)[:, :c_sel].to(torch.bfloat16)
         est = _slot_estimates(pid_s, own_s, cell_scores, use_kernel=use_estimate_kernel)
+        del own_s
         approx = torch.where(_run_heads(pid_s, sent_pid), est, NEG)
+        del est
 
     with tracing.span("engine.prune"):
         # ---- 5. prune straight to the exact-rerank pool.
@@ -650,10 +661,13 @@ def _token_estimates(
 def _cache_scores(emb: torch.Tensor, pids, lens, queries) -> torch.Tensor:
     """Stage 6 over a bf16 cache through the kernel wrappers: the dedup
     kernel where ``dedup_viable`` holds for this pool, else the per-query
-    kernel. [B, R] float32, -inf for empty rows."""
+    kernel. [B, R] float32, -inf for empty rows. Counters ``rerank.dedup``
+    / ``rerank.gather``: one a call, the route taken."""
     b, r = pids.shape
     if dedup_viable(emb.shape[0], b, r, queries.shape[1], queries.shape[2]):
+        tracing.count("rerank.dedup", 1)
         return maxsim_gather_scores_dedup(emb, pids, lens, queries)
+    tracing.count("rerank.gather", 1)
     return maxsim_gather_scores(emb, pids, lens, queries)
 
 
@@ -1095,12 +1109,15 @@ def suggest_query_tile(
     hbm_budget: int = 8 * 1024 * 1024 * 1024,
     max_tile: int = 256,
     slot_budget: int | None = None,
+    probe_table: bool = True,
 ) -> int:
     """Queries per device tile such that the cascade's per-query working
     set (query-centroid scores + candidate buffers + slot scores with the
-    doubling double-buffer) fits the device-memory budget."""
+    doubling double-buffer) fits the device-memory budget. With
+    ``probe_table`` False (stages 1-2 run as the probe kernel, which writes
+    no [Q, Kp] score table) the scores are left out of the working set."""
     kp = ((max(ispec.n_partitions, 1) + 127) // 128) * 128
-    per_query = q_cap * kp * 8
+    per_query = q_cap * kp * 8 if probe_table else 0
     per_query += cand_cap * 32
     if slot_budget is not None:
         width = 2 * min(cand_cap, slot_budget) + ispec.cell_cap + 256

@@ -34,6 +34,7 @@ from fast_plaid_tpu_torch import native
 from fast_plaid_tpu_torch.index.layout import DeviceIndex, round_up
 from fast_plaid_tpu_torch.ops import codec
 from fast_plaid_tpu_torch.search.engine import (
+    _fused_probe,
     candidate_capacity,
     candidates_impl,
     final_topk,
@@ -291,9 +292,13 @@ def _resolve_plan(
     max_tile: int | None,
     pool_divisor: int,
     rank_admit: int | None,
+    subset: bool = False,
 ) -> SearchPlan:
     """The engine's policies over the index's IVF lengths, as every call ran
-    them: candidate capacity, slot budget, estimator, tile size."""
+    them: candidate capacity, slot budget, estimator, tile size. The tile
+    budgets the probe's score table only where stages 1-2 write one (not
+    the probe kernel's route, ``engine._fused_probe``; a subset call
+    always writes it)."""
     ispec = loaded.ispec
     cand_cap = None
     slot_budget = None
@@ -315,9 +320,15 @@ def _resolve_plan(
     )
     b_tile = _tile_size(ispec, q_cap, mem_budget)
     if cand_cap is not None:
+        kp = round_up(max(ispec.n_partitions, 1), 128)
+        table = subset or not _fused_probe(
+            loaded.device, kp, ispec.dim, approx_mode, None, min(n_ivf_probe, kp)
+        )
         b_tile = min(
             b_tile,
-            suggest_query_tile(ispec, q_cap, cand_cap, slot_budget=slot_budget),
+            suggest_query_tile(
+                ispec, q_cap, cand_cap, slot_budget=slot_budget, probe_table=table
+            ),
         )
     if max_tile is not None:
         b_tile = min(b_tile, max(1, int(max_tile)))  # user memory hint
@@ -673,6 +684,7 @@ def search_on_device(
             max_tile=max_tile,
             pool_divisor=pool_divisor,
             rank_admit=rank_admit,
+            subset=subsets is not None,
         )
         b_tile = max(1, min(plan.tile, nq))
 

@@ -9,7 +9,8 @@ they skip on a machine without one. Run them on the card with
 need not have.) The three rerank kernels hold at rtol = atol = 1e-3
 (tensor-core accumulation order) with identical -inf patterns. They stream
 fixed 64-row tiles, so they also hold at doc_cap 336, 1,040 and 2,048; the
-dedup kernel at D 128, 256 and 384 too. The estimate kernel holds at 1e-4
+dedup kernel at D 128, 256 and 384 too, and at D 16, 64, 80 and 96 (the
+columns past a multiple of 64 zero-filled) at doc_cap 304 and 336. The estimate kernel holds at 1e-4
 (float32 sums in another order) at every slot, for any table size.
 """
 
@@ -272,6 +273,20 @@ def test_dedup_kernel_long_docs_and_widths(cuda, doc_cap, d):
     """The dedup kernel streams 64-row tiles: any doc_cap, D 128 to 384,
     against its plain version and kernel 2 on runs of G and G + 1, one pid
     for every slot, a main-path-like overlap and an all-sentinel pool."""
+    _dedup_against_plain_and_kernel2(cuda, doc_cap, d)
+
+
+@pytest.mark.parametrize("doc_cap", [304, 336])
+@pytest.mark.parametrize("d", [16, 64, 80, 96])
+def test_dedup_kernel_narrow_widths(cuda, doc_cap, d):
+    """D a multiple of 16 below 128: ceil(D / 64) column halves, TMA filling
+    the columns past D with zeros in the query and row tiles (D 96 is
+    answerai-colbert-small-v1's width, doc_cap 304 its document_length 300);
+    against the plain version and kernel 2 on the same pools."""
+    _dedup_against_plain_and_kernel2(cuda, doc_cap, d)
+
+
+def _dedup_against_plain_and_kernel2(cuda, doc_cap, d):
     g = torch.Generator(device=cuda).manual_seed(doc_cap + d)
     n_docs, b, r, q = 40, 9, 24, 32
     emb = torch.randn((n_docs + 1, doc_cap, d), generator=g, device=cuda).to(torch.bfloat16)
@@ -291,9 +306,10 @@ def test_dedup_kernel_long_docs_and_widths(cuda, doc_cap, d):
             assert torch.isneginf(got).all()
 
 
-@pytest.mark.parametrize("d", [512, 1024])
+@pytest.mark.parametrize("d", [400, 512, 1024])
 def test_dedup_kernel_wide_rows(cuda, d):
-    """Past D 384 the query rows stream with the row tiles, chunk by chunk
+    """Past D 384 the query rows stream with the row tiles, chunk by chunk,
+    D 400 in seven one-half chunks, the last zero-filled past column 400
     (kernel 2 does not take D 1,024: held against the plain versions)."""
     g = torch.Generator(device=cuda).manual_seed(d)
     n_docs, doc_cap, b, r, q = 30, 336, 9, 24, 32
@@ -334,8 +350,10 @@ def test_kernel_plans_do_not_depend_on_doc_cap(cuda):
     for q in (8, 32, 64):
         assert 0 < lib.fp_maxsim_gather_smem_bytes(128, q) <= 227 * 1024
         assert 0 < lib.fp_maxsim_q4_gather_smem_bytes(128, q) <= 227 * 1024
-        for d in (128, 256, 384, 512, 1024):
+        for d in (16, 64, 96, 128, 256, 384, 512, 1024):
             assert 0 < lib.fp_maxsim_dedup_smem_bytes(d, q) <= 227 * 1024
+        for d in (8, 40, 72):  # not a multiple of 16
+            assert lib.fp_maxsim_dedup_smem_bytes(d, q) == -1
 
 
 def test_stage6_takes_the_dedup_kernel_at_long_docs(cuda, monkeypatch, tmp_path):

@@ -3,8 +3,11 @@ JAX package's on the same seeded pools.
 
 * ``group_pool``: identical entry tables, ``inv`` and entry count, also
   where one pid takes every slot.
-* ``dedup_viable``: the same decision on a grid of (Np, B, R, Q, D), the
-  chip_smoke shape included, and under each ``FASTPLAID_RERANK_DEDUP``.
+* ``dedup_viable``: the same decision as the JAX package's on a grid of
+  (Np, B, R, Q, D), the chip_smoke shape included, and under each
+  ``FASTPLAID_RERANK_DEDUP``; at D 64 and 96, which only the CUDA kernel
+  takes, the JAX package's decision for the same pool at D 128. The route
+  counters ``rerank.dedup`` / ``rerank.gather`` of the engine's stage 6.
 * ``maxsim_gather_scores_dedup`` (its plain version on the CPU) against the
   JAX one in interpret mode and against ``maxsim_gather_scores_plain``, at
   rtol = atol = 1e-3 (float32 sums in another order), with identical -inf
@@ -28,6 +31,7 @@ from fast_plaid_tpu.ops import rerank_dedup as jdedup
 from fast_plaid_tpu_torch.index import layout as tlayout
 from fast_plaid_tpu_torch.ops import rerank_dedup as tdedup
 from fast_plaid_tpu_torch.ops.rerank_kernel import maxsim_gather_scores_plain
+from fast_plaid_tpu_torch.utils import tracing
 
 torch.set_num_threads(2)
 
@@ -99,7 +103,7 @@ _GRID = list(
         (1, 8, 256, 1024),  # B
         (1, 64, 2048),  # R
         (8, 16, 17, 32),  # Q
-        (64, 128, 256),  # D
+        (64, 96, 128, 256),  # D
     )
 )
 
@@ -111,11 +115,36 @@ def test_dedup_viable_matches_jax(env, monkeypatch):
     else:
         monkeypatch.setenv("FASTPLAID_RERANK_DEDUP", env)
     decisions = [tdedup.dedup_viable(*args) for args in _GRID]
-    assert decisions == [jdedup.dedup_viable(*args) for args in _GRID]
+    # D 64 and 96 only the CUDA kernel takes: there the JAX package decides
+    # the same pool at D 128 (the grid's queries fit 8 MB at D 128 too).
+    assert decisions == [
+        jdedup.dedup_viable(*args[:4], args[4] if args[4] % 128 == 0 else 128)
+        for args in _GRID
+    ]
     if env in (None, "auto"):
         assert tdedup.dedup_viable(57_640, 256, 2048, 32, 128)  # the chip_smoke tile
         assert not tdedup.dedup_viable(523_000, 256, 2048, 32, 128)
         assert any(decisions) and not all(decisions)
+
+
+@pytest.mark.parametrize("d", [64, 96, 128])
+def test_dedup_viable_widths(d, monkeypatch):
+    """Any D a multiple of 16 is legal: the TREC-COVID tile (171,336 rows
+    of 96-d, B 256 x R 2,048, the worst case 0.45 of the slots) takes the
+    dedup kernel at D 64, 96 and 128 alike, as the JAX package's gate does
+    at 128; a width off the 16 grid never does. At B 180 (0.59 of the
+    slots) and B 128 (0.78), and for quora's half a million rows, both
+    gates keep kernel 2."""
+    monkeypatch.delenv("FASTPLAID_RERANK_DEDUP", raising=False)
+    assert tdedup.dedup_viable(171_336, 256, 2048, 32, d)
+    assert jdedup.dedup_viable(171_336, 256, 2048, 32, 128)
+    assert not tdedup.dedup_viable(171_336, 256, 2048, 32, d + 8)
+    for np_rows, b in ((171_336, 180), (171_336, 128), (523_000, 256)):
+        assert not tdedup.dedup_viable(np_rows, b, 2048, 32, d)
+        assert not jdedup.dedup_viable(np_rows, b, 2048, 32, 128)
+    monkeypatch.setenv("FASTPLAID_RERANK_DEDUP", "1")
+    assert tdedup.dedup_viable(523_000, 256, 2048, 32, d)
+    assert not tdedup.dedup_viable(523_000, 256, 2048, 32, d + 8)
 
 
 def _scores(emb16, emb_t, pids, lens, queries, g, chunk):
@@ -181,6 +210,25 @@ def test_dedup_all_sentinel_rows_are_neg_inf():
     assert np.isneginf(got).all()
 
 
+def _cache_index(seed, d):
+    """A JAX-made index with its bf16 cache, opened by the port on the CPU,
+    and 4 queries of 16 tokens."""
+    rng = np.random.default_rng(seed)
+    docs = testing.random_documents(rng, 60, 12, d, variable=True)
+    dev_j, spec_j = testing.build_memory_index(docs, nbits=4, seed=0, k=32)
+    dev_j = build_emb_cache(dev_j, spec_j)
+    arrays = {
+        f: np.asarray(getattr(dev_j, f))
+        for f in dev_j._fields
+        if getattr(dev_j, f) is not None and f != "buckets"
+    }
+    dev_t, spec_t = tlayout.device_index_from_arrays(
+        arrays, dataclasses.asdict(spec_j), "cpu"
+    )
+    q = torch.from_numpy(testing.random_queries(rng, 4, 16, d).astype(np.float32))
+    return dev_t, spec_t, q
+
+
 def test_stage6_takes_the_gate(monkeypatch):
     """The engine's stage 6 calls the dedup wrapper exactly where
     ``dedup_viable`` holds (forced and disabled here by the override)."""
@@ -195,19 +243,7 @@ def test_stage6_takes_the_gate(monkeypatch):
         tengine, "maxsim_gather_scores",
         lambda *a, **k: calls.append("per_query") or maxsim_gather_scores_plain(*a, **k),
     )
-    rng = np.random.default_rng(0)
-    docs = testing.random_documents(rng, 60, 12, 128, variable=True)
-    dev_j, spec_j = testing.build_memory_index(docs, nbits=4, seed=0, k=32)
-    dev_j = build_emb_cache(dev_j, spec_j)
-    arrays = {
-        f: np.asarray(getattr(dev_j, f))
-        for f in dev_j._fields
-        if getattr(dev_j, f) is not None and f != "buckets"
-    }
-    dev_t, spec_t = tlayout.device_index_from_arrays(
-        arrays, dataclasses.asdict(spec_j), "cpu"
-    )
-    q = torch.from_numpy(testing.random_queries(rng, 4, 16, 128).astype(np.float32))
+    dev_t, spec_t, q = _cache_index(0, 128)
     kw = dict(ispec=spec_t, top_k=5, n_ivf_probe=4, n_full_scores=64, use_rerank_kernel=True)
     results = {}
     for env in ("1", "0"):
@@ -216,3 +252,27 @@ def test_stage6_takes_the_gate(monkeypatch):
         results[env] = tengine.search_impl(dev_t, q, None, **kw)
         assert calls == (["dedup"] if env == "1" else ["per_query"])
     np.testing.assert_allclose(results["1"][1].numpy(), results["0"][1].numpy(), rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("d", [96, 128])
+def test_stage6_route_counters(d, monkeypatch):
+    """Each stage-6 call over the bf16 cache counts its route once:
+    ``rerank.dedup`` where the gate holds, ``rerank.gather`` where it does
+    not; at D 96 as at 128."""
+    from fast_plaid_tpu_torch.search import engine as tengine
+
+    dev_t, spec_t, q = _cache_index(d, d)
+    kw = dict(ispec=spec_t, top_k=5, n_ivf_probe=4, n_full_scores=64, use_rerank_kernel=True)
+    scores = {}
+    for env, want in (("1", (1, 0)), ("0", (0, 1))):
+        monkeypatch.setenv("FASTPLAID_RERANK_DEDUP", env)
+        tracing.disable()
+        tracing.drain()
+        tracing.enable()
+        try:
+            scores[env] = tengine.search_impl(dev_t, q, None, **kw)[1]
+        finally:
+            tracing.disable()
+        counters = tracing.drain()["counters"]
+        assert (counters.get("rerank.dedup", 0), counters.get("rerank.gather", 0)) == want
+    np.testing.assert_allclose(scores["1"].numpy(), scores["0"].numpy(), rtol=TOL, atol=TOL)

@@ -210,6 +210,40 @@ def test_the_memoised_plan_is_the_fresh_one(tier, approx_mode):
         assert {r for _, r in resolved} >= {0, 1, 2}
 
 
+@pytest.mark.parametrize("n_part", [32_768, 65_536])
+def test_the_tile_budgets_the_probe_table_only_where_it_is_written(n_part):
+    """The probe kernel's route (a GPU, 32k cells or more, not ``tokens``,
+    no subset) writes no [Q, Kp] score table, so the tile leaves it out of
+    the working set; ``tokens``, a subset call and the CPU's table route
+    count it. At 65,536 cells of a TREC-COVID-like IVF (lists of ~490, 16
+    hubs of 22,000) the table alone cut the tile below 256."""
+    rng = np.random.default_rng(11)
+    lens = rng.lognormal(6.0, 0.6, n_part).astype(np.int64).clip(1)
+    lens[:16] = 22_000
+    ispec = IndexSpec(
+        dim=96, nbits=4, n_docs=171_332, n_partitions=n_part, doc_cap=304,
+        cell_cap=round_up(int(lens.max()), 128), has_ivf=True,
+    )
+    kw = {"top_k": 10, "n_full_scores": 4096, "n_ivf_probe": 8,
+          "mem_budget": 10 * 1024**3, "max_tile": None, "pool_divisor": 2, "rank_admit": None}
+    cand_cap = candidate_capacity(lens, min(32 * 8, n_part), 4096)
+    slot_budget = suggest_slot_budget(lens, 4096)
+
+    def tile(table):
+        return suggest_query_tile(ispec, 32, cand_cap, slot_budget=slot_budget, probe_table=table)
+
+    def plan(device, **extra):
+        loaded = LoadedIndex(types.SimpleNamespace(emb_q4=None), ispec, torch.device(device),
+                             ivf_lengths_host=lens)
+        return searcher.plan_search(loaded, 32, **{"approx_mode": "cells", **kw, **extra})
+
+    assert plan("cuda").tile == tile(False) == 256
+    assert plan("cuda", subset=True).tile == tile(True)
+    assert plan("cuda", approx_mode="tokens").tile == tile(True)
+    assert plan("cpu").tile == tile(True)
+    assert tile(True) == (228 if n_part == 65_536 else 256)
+
+
 def test_threads_racing_on_the_memo_read_whole_plans():
     loaded = _hub_index(True, True)
     base = {"top_k": 10, "n_ivf_probe": 8, "mem_budget": 256 * 1024 * 1024,
